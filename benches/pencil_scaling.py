@@ -1,13 +1,12 @@
 """Weak-scaling measurement for the pencil-decomposed 3-D R2C pipeline.
 
-BASELINE.md target: >= 70% weak-scaling efficiency for pencil 3-D R2C on 64
-chips. On this single-chip environment the protocol runs on the virtual CPU
-mesh (XLA_FLAGS=--xla_force_host_platform_device_count=N) to validate the
-scaling *machinery*; on a real pod slice the same script measures the real
-thing (per-device problem volume held constant while the mesh grows).
+Holds the per-device volume constant while the mesh grows over the devices
+JAX sees (the GPUs of one host, or N virtual CPU devices with
+XLA_FLAGS=--xla_force_host_platform_device_count=N, which validates the
+machinery only: virtual devices share one machine's cores). Prints a
+model estimate from the device table first, then the measured rows.
 
 Usage:
-  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   python benches/pencil_scaling.py [--base 32]
 """
 
@@ -25,13 +24,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", type=int, default=32,
                     help="per-device cube edge (weak scaling)")
-    ap.add_argument("--cpu", action="store_true", default=None)
     args = ap.parse_args()
 
     import jax
-
-    if args.cpu or jax.default_backend() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     import jax.numpy as jnp
@@ -46,61 +41,26 @@ def main():
               " validates the sharding machinery, NOT scaling efficiency;"
               " apparent efficiency degrades ~1/N by construction.")
 
-    # Model-based prediction for the BASELINE.json 64-chip 256^3 target
-    # (measurement is impossible on this 1-chip host; the model's comm
-    # accounting is pinned by tests/test_hlo_schedule.py, and the async
-    # all-to-all/compute overlap by its v5e-topology AOT schedule test)
-    from ndrustfft_tpu.utils.profiling import predict_pencil_weak_scaling
+    # roofline model of the same pipeline at 256^3 per device on the most
+    # square mesh of all devices, from the device table (a model, not a
+    # measurement; its comm accounting is pinned by
+    # tests/test_hlo_schedule.py)
+    from ndrustfft_tpu.utils.profiling import (
+        chip_spec, predict_pencil_weak_scaling,
+    )
 
-    est = predict_pencil_weak_scaling(
-        local_shape=(256 // 8, 256 // 8, 256), mesh_shape=(8, 8),
-        itemsize=8, hbm_gbps=819.0, axis_bw=9.0e10)
-    print(f"# MODEL 64-chip (8x8 v5e) 256^3 R2C fwd+inv: {est}")
-    # cross-check against MEASURED single-chip numbers instead of nominal
-    # specs (round-2 verdict next #6): 563 GB/s is the chip's measured copy
-    # bandwidth through this stack, and the kernel path runs ~35-50% of the
-    # nominal roofline (BASELINE.md round-2/3 measurements)
-    est_meas = predict_pencil_weak_scaling(
-        local_shape=(256 // 8, 256 // 8, 256), mesh_shape=(8, 8),
-        itemsize=8, hbm_gbps=563.0, axis_bw=9.0e10, hbm_fraction=0.40)
-    print("# MODEL at MEASURED 563 GB/s copy bw + 40%-of-roofline kernels: "
-          f"{est_meas}")
-    # round 4: the bf16 wire format (pencil_transform wire_dtype='bfloat16')
-    # halves bytes over ICI; with IDEAL kernels (the round-3 verdict's
-    # stress case — fast kernels un-met the target) the model now clears
-    # the 70% weak-scaling bar instead of resting on slow compute
-    est_wire = predict_pencil_weak_scaling(
-        local_shape=(256 // 8, 256 // 8, 256), mesh_shape=(8, 8),
-        itemsize=8, hbm_gbps=819.0, axis_bw=9.0e10, hbm_fraction=0.8,
-        wire_itemsize=2)
-    print("# MODEL ideal kernels + bf16 wire (wire_dtype='bfloat16'): "
-          f"{est_wire}")
-    # measured round-4 kernel tier (donate_io chain, 87% of nominal HBM
-    # roofline at the headline shape, BENCH round-4 capture) + bf16 wire
-    est_wire_meas = predict_pencil_weak_scaling(
-        local_shape=(256 // 8, 256 // 8, 256), mesh_shape=(8, 8),
-        itemsize=8, hbm_gbps=819.0, axis_bw=9.0e10, hbm_fraction=0.87,
-        wire_itemsize=2)
-    print("# MODEL measured-r4 kernels (87% roofline) + bf16 wire: "
-          f"{est_wire_meas}")
-    # round 5 (verdict weak #5): the wire LADDER decouples the >=70%
-    # weak-scaling story from the bf16 precision cliff. 'int16' moves the
-    # SAME halved bytes as bf16 (wire_itemsize=2: identical comm model,
-    # identical efficiency rows above) at ~1e-4-class roundtrip accuracy
-    # (vs bf16's ~2e-3 — tests/test_parallel.py::test_pencil_wire_ladder
-    # _numerics), so the target no longer leans on the lossy tier.
-    # 'bfloat16x2' (hi+lo, ~1e-5-class) moves f32-equal bytes for f32
-    # grids — its model row equals the f32-wire row — and HALVED bytes
-    # for c128/dd grids.
-    print("# MODEL ideal kernels + int16 wire: same comm bytes as the "
-          "bf16 row above (wire_itemsize=2) => identical efficiency, "
-          "~1e-4-class accuracy instead of ~2e-3")
-    est_bf16x2 = predict_pencil_weak_scaling(
-        local_shape=(256 // 8, 256 // 8, 256), mesh_shape=(8, 8),
-        itemsize=8, hbm_gbps=819.0, axis_bw=9.0e10, hbm_fraction=0.8,
-        wire_itemsize=4)
-    print("# MODEL ideal kernels + bf16x2 wire (f32-equal bytes on f32 "
-          f"grids, ~1e-5-class): {est_bf16x2}")
+    py = int(np.floor(np.sqrt(ndev_all)))
+    while ndev_all % py:
+        py -= 1
+    spec = chip_spec()
+    for wire, item in ((None, None), ("bfloat16 / int16", 2)):
+        est = predict_pencil_weak_scaling(
+            local_shape=(256, 256, 256), mesh_shape=(py, ndev_all // py),
+            itemsize=8, wire_itemsize=item)
+        print(f"# MODEL {jax.devices()[0].device_kind} "
+              f"({spec.hbm_gbps:.0f} GB/s, links {spec.link_gbps:.0f} GB/s) "
+              f"{py}x{ndev_all // py} mesh, 256^3 per device, wire "
+              f"{wire or 'f32'}: {est}")
     results = {}
     counts = [d for d in [1, 2, 4, 8, 16, 32, 64] if d <= ndev_all]
     for ndev in counts:
@@ -133,12 +93,11 @@ def main():
         print(f"devices={ndev:3d} grid={nz}x{ny}x{nx}: {t*1e3:8.2f} ms  "
               f"weak-scaling eff {eff:5.1f}%")
 
-    # chunked-vs-unchunked A/B (round-2 verdict next #6): same full-mesh
-    # pipeline with pipeline_chunks in {1, 2, 4}; JSON lines so the run is
-    # a committable artifact. On the CPU mesh collectives execute
-    # synchronously, so this records machinery overhead, NOT the ICI
-    # overlap win — the overlap itself is proven at the schedule level by
-    # tests/test_hlo_schedule.py's v5e-topology AOT test.
+    # chunked-vs-unchunked A/B: same full-mesh pipeline with
+    # pipeline_chunks in {1, 2, 4} and each wire format; JSON lines. On the
+    # CPU mesh collectives execute synchronously, so there this records
+    # machinery overhead, NOT the overlap win (which chip_smoke.py --four
+    # checks in the GPU-compiled schedule).
     import json
 
     ndev = counts[-1]
@@ -151,13 +110,9 @@ def main():
     rng = np.random.default_rng(0)
     v = jnp.asarray(rng.standard_normal((nz, ny, nx)), dtype=jnp.float32)
     v = jax.device_put(v, NamedSharding(mesh, P("y", "z", None)))
-    # NOTE on CPU-mesh chunk results (round-3 question "chunks hurt"): on
-    # the virtual CPU mesh collectives run SYNCHRONOUSLY, so chunking buys
-    # zero overlap and pays chunk dispatch + per-chunk pad/slice + the
-    # final concatenate — monotonic slowdown is the EXPECTED CPU result.
-    # The overlap win needs async ICI collectives; it is pinned at the
-    # schedule level by tests/test_hlo_schedule.py's v5e-topology AOT test
-    # (all-to-all start/done interleaved with transform compute).
+    # on the virtual CPU mesh chunking buys no overlap and pays chunk
+    # dispatch + per-chunk pad/slice + the final concatenate: a monotonic
+    # slowdown is the expected CPU result
     for chunks in (1, 2, 4):
         for wire in (None, "bfloat16", "int16", "bfloat16x2"):
             @jax.jit
@@ -182,6 +137,7 @@ def main():
                 "unit": "ms/roundtrip",
                 "value": round(sorted(ts)[len(ts) // 2] * 1e3, 3),
                 "backend": jax.default_backend(),
+                "device_kind": jax.devices()[0].device_kind,
             }))
 
 

@@ -10,8 +10,7 @@ import numpy as np
 
 import jax
 
-# f64 examples (like the reference's): TPUs have no f64, so run on CPU
-jax.config.update("jax_platforms", "cpu")
+# f64 examples, like the reference's
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -1,9 +1,8 @@
-"""Fused spectral filtering with ndspectral_r2c — the single-kernel
-r2c -> diagonal multiply -> c2r pipeline (round 5).
+"""Fused spectral filtering with ndspectral_r2c — the r2c -> diagonal
+multiply -> c2r pipeline compiled as one program.
 
 Three canonical frequency-domain operators on a batch of real signals,
-each ONE call (and on the TPU axis-mid route, ONE kernel pass — the
-spectrum never leaves VMEM):
+each ONE call:
 
   1. sharp low-pass (dealiasing-style 2/3 truncation),
   2. spectral first derivative (multiplier i*k),
@@ -23,7 +22,6 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

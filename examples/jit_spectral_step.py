@@ -5,12 +5,12 @@ reference expresses only as "call the ``_par`` twin" (src/lib.rs:169-238).
 Here the WHOLE solver step — forward 2-D FFT, spectral diffusion
 multiplier, inverse — is one jit over a mesh-sharded state. Each
 ``_par`` call lowers through ``jax.experimental.custom_partitioning``
-(parallel/spmd.py): the sharded transform axis is rotated chip-local by
-the SPMD partitioner with tiled all_to_all collectives (never an
-all-gather), the local transform keeps its kernel route, and the caller's
-sharding is restored — so the stepped state keeps a stable sharding across
-iterations. Runs on 8 virtual CPU devices; the same code runs unchanged on
-a real TPU mesh.
+(parallel/spmd.py): the sharded transform axis is rotated device-local
+by the SPMD partitioner with tiled all_to_all collectives (never an
+all-gather), and the caller's sharding is restored — so the stepped state
+keeps a stable sharding across iterations. Runs on every device JAX sees:
+the GPUs of one host, or 8 virtual CPU devices with
+XLA_FLAGS=--xla_force_host_platform_device_count=8.
 
 Problem: heat equation u_t = nu * lap(u) on a periodic square, integrated
 exactly in spectral space per step; asserted against the closed-form
@@ -18,21 +18,14 @@ single-mode decay.
 """
 
 import os
-import re
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-
-flags = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
-               os.environ.get("XLA_FLAGS", ""))
-os.environ["XLA_FLAGS"] = flags + " --xla_force_host_platform_device_count=8"
-os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding
@@ -43,7 +36,7 @@ from ndrustfft_tpu import FftHandler, Normalization, ndfft_par, ndifft_par
 n = 64
 nu = 0.01
 dt = 0.05
-mesh = Mesh(np.array(jax.devices()[:8]), ("d",))
+mesh = Mesh(np.array(jax.devices()), ("d",))
 
 h = FftHandler(n)
 hi = FftHandler(n)  # Default normalization: ifft applies 1/n per axis
@@ -57,7 +50,7 @@ decay = jnp.asarray(np.exp(-nu * k2 * dt), jnp.complex64)
 @jax.jit
 def step(u):
     # forward along both axes: axis 0 is SHARDED -> the partitioner runs
-    # the pencil rotation; axis 1 is local -> plain kernel route
+    # the pencil rotation; axis 1 is local -> the plain local transform
     uhat = ndfft_par(ndfft_par(u, h, axis=1), h, axis=0)
     uhat = uhat * decay
     return ndifft_par(ndifft_par(uhat, hi, axis=0), hi, axis=1)
@@ -83,8 +76,10 @@ print(f"heat step x{steps} on a sharded mesh: max err vs closed form "
       f"{err:.2e}")
 assert err < 1e-4, err
 
-# the compiled step uses all_to_all (the pencil rotation), never all-gather
+# on several devices the compiled step uses all_to_all (the pencil
+# rotation), never all-gather
 hlo = step.lower(u).compile().as_text()
-assert any("all-to-all" in ln for ln in hlo.splitlines())
+if len(jax.devices()) > 1:
+    assert any("all-to-all" in ln for ln in hlo.splitlines())
 assert not any("all-gather" in ln for ln in hlo.splitlines())
 print("compiled step: all_to_all pencil rotation, zero all-gathers OK")

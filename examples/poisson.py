@@ -3,7 +3,7 @@
 
 Solves lap(u) = f on [0, 2pi)^2 with the R2C pipeline: forward transform,
 divide by -(kx^2 + ky^2), inverse transform. Validated against an analytic
-solution. Runs single-chip here; the same spectral step scales to a mesh via
+solution. Runs on one device; the same spectral step scales to a mesh via
 ndrustfft_tpu.parallel (see examples/pencil3d.py).
 """
 
@@ -16,8 +16,7 @@ import numpy as np
 
 import jax
 
-# f64 example (like the reference's): TPUs have no f64, so run on CPU
-jax.config.update("jax_platforms", "cpu")
+# f64 example, like the reference's
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -1,14 +1,15 @@
 """Distributed 3-D periodic Poisson solve in ONE call: spectral_pencil.
 
 The round-5 distributed member of the fused-spectral family — forward
-pencil rfftn, the diagonal 1/|k|^2 multiply chip-local in the forward's
+pencil rfftn, the diagonal 1/|k|^2 multiply device-local in the forward's
 final pencil orientation (zero extra collectives beyond the transform's
 own all_to_all hops), inverse pencil irfftn. No reference analog (the
 reference is single-host; its users hand-compose the three steps —
 reference src/lib.rs:543-611 + examples/rfft2.rs).
 
 Runs on any device count (8 virtual CPU devices when
-XLA_FLAGS=--xla_force_host_platform_device_count=8 is set, or a TPU slice).
+XLA_FLAGS=--xla_force_host_platform_device_count=8 is set, or the GPUs of
+one host).
 """
 
 import os

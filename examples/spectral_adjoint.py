@@ -1,7 +1,7 @@
 """Gradient-based source recovery through the spectral pipeline — the
 adjoint-method workflow the pure-Rust reference cannot express (it has no
-autodiff; reverse-mode through every route incl. the Pallas kernels is a
-TPU-native extension of this build, DESIGN.md §14).
+autodiff; reverse-mode through every transform is an extension of this
+build, DESIGN.md §14).
 
 Inverse problem: recover the source f of the periodic Poisson equation
 lap(u) = f from an observation of u, by gradient descent on
@@ -22,7 +22,6 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

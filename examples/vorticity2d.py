@@ -28,8 +28,7 @@ import numpy as np
 
 import jax
 
-# f64 validation run (like the reference's f64 examples): CPU story
-jax.config.update("jax_platforms", "cpu")
+# f64 validation run, like the reference's f64 examples
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -1,10 +1,10 @@
 """Runtime configuration for ndrustfft_tpu.
 
 The reference exposes compile-time Cargo features (``parallel``, ``avx``,
-``sse``, ``neon`` — reference Cargo.toml:34-39); the TPU build replaces those
-with runtime toggles: DFT-matmul precision on the MXU, the maximum base radix
-the planner will lower to a dense DFT matmul before falling back to Bluestein,
-and whether Pallas kernels are used on TPU (vs the pure-XLA engine).
+``sse``, ``neon`` — reference Cargo.toml:34-39); this build replaces those
+with runtime toggles: the precision of the DFT matmuls, the maximum base
+radix the planner lowers to a dense DFT matmul before falling back to
+Bluestein, and how ``_par`` entry points behave inside a user jit.
 """
 
 from __future__ import annotations
@@ -16,95 +16,27 @@ from dataclasses import dataclass
 
 @dataclass
 class _Config:
-    # MXU precision for DFT matmuls (f32 path; irrelevant on CPU/f64):
-    #   'high'    = bf16x3 passes: measured ~2e-5 max-rel at n=1024 and
-    #               5-7x faster than 'highest' on v5e — the default
-    #   'highest' = f32-exact (6 passes): ~3e-7 max-rel, for strict parity
-    #   'default' = single bf16 pass: ~4e-3, fast and lossy
-    matmul_precision: str = os.environ.get("NDRUSTFFT_TPU_PRECISION", "high")
+    # Precision of the f32 DFT matmuls (f64 dots are exact either way). On
+    # an NVIDIA H100 80GB HBM3 at a 400 W power limit, at the reference
+    # benchmark's shape (16 x 1024 x 1024, axes 1 and 2), 'highest' keeps
+    # every f32 family at 2.0e-7..3.4e-7 x max|ref| against float64, and
+    # 'high' (TF32-class) lands at 2.4e-4..5.1e-4 on every family but
+    # DCT-I — 25-50x outside the 1e-5 tolerance the tests hold — while
+    # running 1.4-1.9x slower on all but DST-I (1.0-2.3 ms per call at
+    # 'highest', 1.55-4.2 ms at 'high'). chip_smoke.py prints both for
+    # every family.
+    #   'highest' = f32-exact dots (default)
+    #   'high'    = TF32-class dots on the GPU
+    #   'default' = the backend's fastest
+    matmul_precision: str = os.environ.get("NDRUSTFFT_TPU_PRECISION", "highest")
     # Largest base DFT the planner emits as a dense matmul. Primes above this
-    # route the whole transform through Bluestein (chirp-z). 128 = one MXU tile.
+    # route the whole transform through Bluestein (chirp-z).
     max_base_radix: int = int(os.environ.get("NDRUSTFFT_TPU_MAX_RADIX", "128"))
-    # Use fused Pallas kernels on TPU when a kernel exists for the plan.
-    # ON by default since round 2: with manual bf16x3 dots and the twostep
-    # dataflow the kernels beat the XLA-engine lowering on the HBM-honest
-    # chained protocol (1024^2 c64, batch 16: lane-last 99 us vs 163.5;
-    # mid-axis 106 us vs 145.7; jnp.fft 174.1 — tools/time_kernels.py).
-    # Set NDRUSTFFT_TPU_PALLAS=0 to fall back to the pure-XLA engine.
-    use_pallas: bool = os.environ.get("NDRUSTFFT_TPU_PALLAS", "1") in ("1", "true")
-    # Kernel schedule flavor for the lane-last C2C kernel:
-    #   'twostep' (default) — 2-D-matmul-only dataflow, measured 1.7x faster
-    #       than 'mosaic' on v5e (73 vs 127 us at 1024^2); falls back to
-    #       'mosaic' for n without a {128,256} sublane factor
-    #   'mosaic'  — recursive middle-dim schedule
-    pallas_flavor: str = os.environ.get("NDRUSTFFT_TPU_PALLAS_FLAVOR", "twostep")
-    # Override the kernels' lane-tile size (rows per grid step for
-    # lane-last flavors, L-tile for axis-mid). 0 = auto (VMEM-budget bound).
-    pallas_tile: int = int(os.environ.get("NDRUSTFFT_TPU_PALLAS_TILE", "0"))
-    # Run Pallas kernels in interpreter mode (CPU testing of the kernel path).
-    pallas_interpret: bool = os.environ.get("NDRUSTFFT_TPU_PALLAS_INTERPRET", "0") in (
-        "1", "true")
-    # Policy for float64/complex128 transforms requested on a TPU backend.
-    # TPU has no native f64; in this image an f64 program SIGABRTs the
-    # compile helper with no clean error (NOTES_TPU.md), so the library
-    # refuses eagerly by default. MXU-dot lowerings cap at ~1e-7 (every
-    # dot accumulates in f32 no matter how operands are split), which is
-    # why the true-f64 tier is the DOT-FREE double-float core in
-    # ops/df64.py — see DESIGN.md §9 for the full decision record.
-    #   'error' (default) — raise ValueError before dispatch, with guidance
-    #   'emulate'         — true ~5e-15 f64 emulation: double-float
-    #                       (two-f32) elementwise Stockham core on the TPU
-    #                       VPU, host-side split/recombine; eager host
-    #                       inputs only (ops/df64.py)
-    #   'demote'          — opt-in: compute in f32/complex64 at HIGHEST
-    #                       (f32-exact) dot precision and cast back to
-    #                       f64/c128; measured ~3e-7 relative at n=1024
-    #   'allow'           — hand the program to XLA anyway (demotion/crash
-    #                       behavior is the backend's)
-    tpu_f64: str = os.environ.get("NDRUSTFFT_TPU_F64", "error")
-    # Kernel body for the axis-mid C2C twostep flavor:
-    #   'bts2' (default) — DIF dataflow, stage twiddle folded into per-q
-    #          stage-2 weight consts, all dots plain 2-D matmuls; exit is a
-    #          leading<->sublane permute (no lane crossing). Measured 50.5 us
-    #          vs 58.6 ('ts') at 1024^2 on v5e.
-    #   'ts'  — round-2 twostep core (one lane<->sublane exit relayout)
-    #   'bts' — DIF with a rank-3 middle-contraction stage-2 dot (measured
-    #          slower, kept as a comparison point)
-    mid_body: str = os.environ.get("NDRUSTFFT_TPU_MID_BODY", "bts2")
-    # Force the twostep sublane factor m for the bts2 body (0 = auto =
-    # minimal m+f). m=128 gives f=8 (3 VPU butterfly levels, least MXU);
-    # m=256 gives f=4 (2 levels, 2x stage-2 MACs) — a VPU/MXU tradeoff
-    # knob for per-n tuning.
-    mid_split: int = int(os.environ.get("NDRUSTFFT_TPU_MID_SPLIT", "0"))
-    # Force the twostep sublane factor m for the fused DCT kernels
-    # (II/III mid, IV's half-length pipelines) / the R2C-C2R half-FFT
-    # kernels. 0 = per-n measured default. The kernels' dominant MXU cost
-    # is the stage-1/stage-2 dense DFT-m dot (linear in m), so the
-    # smallest m whose butterfly factor f stays on the VPU wins whenever
-    # Mosaic lays the narrower planes out cleanly — per-n winners are
-    # blessed from an on-chip A/B (tools/split_probe.py), never assumed.
-    dct_split: int = int(os.environ.get("NDRUSTFFT_TPU_DCT_SPLIT", "0"))
-    rfft_split: int = int(os.environ.get("NDRUSTFFT_TPU_RFFT_SPLIT", "0"))
-    # Opt-in in-place pages for same-shape Pallas kernels: alias each data
-    # output buffer to the corresponding input operand (input_output_aliases)
-    # so chained / loop-carried transforms write IN PLACE. Inside a
-    # lax.fori_loop / lax.scan chain this deletes XLA's hidden carry copy —
-    # a full extra HBM round trip per iteration (measured on v5e: a chained
-    # Pallas copy drops from ~50 to ~26 us/iteration at 1024^2 c64,
-    # tools/floor_sweep.py 'alias' rows vs 'ctrl'). Trade-off: when the
-    # INPUT ARRAY IS STILL LIVE after the call (y = ndfft(x) with x reused),
-    # XLA must insert a defensive copy instead — strictly slower — so this
-    # is opt-in for iterative/spectral-solver workloads whose inputs are
-    # consumed. Kernels whose output shape differs from their input
-    # (r2c/c2r, axis-0, four-step step 3) ignore the flag.
-    donate_io: bool = os.environ.get("NDRUSTFFT_TPU_DONATE", "0") in (
-        "1", "true")
     # Opt-in dispatch observability: when True, each traced dispatch prints
-    # one line to stderr stating (transform, n, axis, dtype) -> the chosen
-    # execution path (dense / bts2 / ts / generic kernel / engine /
-    # bluestein-kernel / ...), so users can tell WHY a call runs at kernel
-    # vs engine speed (SURVEY.md §5 metrics decision: optional debug-level
-    # plan logging only).
+    # one line to stderr stating (transform, n, axis) -> the chosen
+    # execution path (engine / bluestein / moveaxis ...), so users can tell
+    # which lowering a call compiled to (SURVEY.md §5 metrics decision:
+    # optional debug-level plan logging only).
     debug_plan_log: bool = os.environ.get("NDRUSTFFT_TPU_DEBUG_PLAN", "0") in (
         "1", "true")
     # How a `_par` entry point traced inside a user jit executes:
@@ -125,19 +57,17 @@ class _Config:
     warn_par_under_jit: bool = os.environ.get(
         "NDRUSTFFT_TPU_WARN_PAR_JIT", "1") in ("1", "true")
     # Axis-0 execution strategy for C2C:
-    #   'moveaxis' (default) — transpose to lane-last; XLA fuses the
-    #                transposes into the stage matmuls (fastest measured)
+    #   'moveaxis' (default) — transpose to lane-last and run the engine
     #   'einsum'   — first-axis contraction without any transpose
-    #   'pallas'   — transpose-free axis-0 Pallas kernel
     axis0_strategy: str = os.environ.get("NDRUSTFFT_TPU_AXIS0", "moveaxis")
 
 
 config = _Config()
 
-# Thread-local precision override (precision_override below): scoped,
-# per-thread alternative to mutating config.matmul_precision, so e.g. the
-# tpu_f64='demote' path can trace at 'highest' without silently changing
-# the precision of transforms being traced concurrently on other threads.
+# Thread-local precision override (precision_override below): a scoped,
+# per-thread alternative to mutating config.matmul_precision, so a trace
+# at another precision does not change the precision of transforms being
+# traced concurrently on other threads.
 _tls = threading.local()
 
 
@@ -170,38 +100,4 @@ class precision_override:
 
     def __exit__(self, *exc):
         _tls.precision = self._prev
-        return False
-
-
-def use_pallas_effective() -> bool:
-    """Whether Pallas kernel routes are enabled for the CURRENT THREAD:
-    ``config.use_pallas`` unless a scoped :class:`pallas_override` is
-    active. Every kernel-eligibility gate consults this instead of the
-    global flag directly."""
-    ov = getattr(_tls, "use_pallas", None)
-    return config.use_pallas if ov is None else ov
-
-
-class pallas_override:
-    """Context manager: force kernel-route enablement for the CURRENT
-    THREAD only (trace-time scope; nestable).
-
-    Used by the AD wrapper (api._diffable) to trace its engine tangent
-    with kernels disabled WITHOUT mutating ``config.use_pallas`` — a
-    global toggle there could interleave with another thread's
-    save/restore and leave kernels off permanently, and would silently
-    reroute transforms being traced concurrently elsewhere (the same
-    hazard :class:`precision_override` exists to prevent for precision).
-    """
-
-    def __init__(self, enabled: bool):
-        self._enabled = enabled
-
-    def __enter__(self):
-        self._prev = getattr(_tls, "use_pallas", None)
-        _tls.use_pallas = self._enabled
-        return self
-
-    def __exit__(self, *exc):
-        _tls.use_pallas = self._prev
         return False

@@ -81,29 +81,7 @@ class _HandlerBase:
             if kind == "c2r":
                 s[ax] = getattr(self, "m")
             dt = cdt if is_cplx else rdt
-            # same tpu_f64 policy as _dispatch: refuse f64 headed for TPU
-            # (default) or warm the ':demote' cache entry dispatch will
-            # actually use — a raw f64 program must never reach the TPU
-            # compiler (SIGABRT, NOTES_TPU.md)
-            jkind = kind
-            if float64:
-                if api._emulate_active(jax.devices()):
-                    # 'emulate' bypasses the jit table entirely: warm the
-                    # df64 core's internal jit cache by executing one
-                    # emulated call on host zeros (run=False has nothing to
-                    # AOT-compile here — the f32 core compiles on first use)
-                    if run:
-                        import numpy as _np
-
-                        ndt = _np.complex128 if is_cplx else _np.float64
-                        jax.block_until_ready(api._run_emulated(
-                            kind, _np.zeros(tuple(s), ndt), self, ax))
-                    continue
-                if api._demote_wanted(dt, jax.devices()):
-                    jkind = kind + ":demote"
-                else:
-                    api._check_tpu_f64(dt, jax.devices())
-            fn = api._jitted(jkind, self, ax, api._config_key())
+            fn = api._jitted(kind, self, ax, api._config_key())
             if run:
                 jax.block_until_ready(fn(jnp.zeros(tuple(s), dt)))
             else:
@@ -189,7 +167,7 @@ class DstHandler(_HandlerBase):
     four types; Default normalization yields scipy.fft.dst values (the
     rustdct convention times 2, mirroring src/lib.rs:736-741). Types 2-4
     are flip/sign conjugations of the same-type DCT and ride every DCT
-    execution path, including the fused Pallas kernels (ops/dst.py).
+    execution path (ops/dst.py).
 
     Example::
 

@@ -2,7 +2,7 @@
 // (reference delegates planning to rustfft 6.1.0, SURVEY.md §2.2 N1).
 //
 // Plan-time work lives here: integer factorization, balanced factor
-// grouping for the MXU-matmul schedule, Bluestein padding selection, and
+// grouping for the matmul stage schedule, Bluestein padding selection, and
 // angle-exact twiddle-table generation (integer phase reduction before the
 // float multiply, so tables are accurate to f64 ulp at any n). The Python
 // layer calls through ctypes and falls back to its own implementation when

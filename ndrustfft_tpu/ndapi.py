@@ -5,8 +5,8 @@ composed by the user (examples/fft2.rs, examples/rfft2.rs). This module
 packages those canonical compositions — the numpy/scipy-style surface a
 JAX user expects — on top of the same handlers/engine, with handler caching
 per axis length. For mesh-sharded global arrays use
-``ndrustfft_tpu.parallel`` instead (same compositions, chip-local + ICI
-all-to-all).
+``ndrustfft_tpu.parallel`` instead (same compositions, device-local
+transforms + all-to-all).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ Semantics pinned from the reference:
 
 ``Custom`` takes a callable replacing the reference's ``fn(&mut [T])``: it
 receives a JAX array whose LAST axis is the transform lane (it may carry
-arbitrary leading batch dimensions — lanes are batched on TPU instead of
+arbitrary leading batch dimensions — lanes are batched instead of
 iterated) and must return an array of the same shape/dtype. It must be
 jax-traceable.
 """
@@ -71,22 +71,21 @@ class Normalization:
 
     @staticmethod
     def scalar(value: float) -> "Normalization":
-        """Multiply-by-constant normalization — a TPU-native extension.
+        """Multiply-by-constant normalization — an extension.
 
         Semantically equal to ``Normalization.custom(lambda v: v * value)``
         (and to the reference's ``Custom(fn)`` with a scaling fn), but the
-        library FUSES a scalar policy into the transform kernel constants:
-        the scale rides the stage twiddle multiply inside the Pallas kernel
-        (or the XLA dot epilogue), costing zero extra HBM passes — the TPU
+        library folds a scalar policy into the transform's constants or its
+        last stage's epilogue, costing no extra pass over the data — the
         analog of the reference applying ``*= 1/n`` inside the lane pass
         (src/lib.rs:333-338) instead of as a second sweep. The built-in
         DEFAULT policy uses the same fused path.
 
-        Compile-cost note: because the scale is baked into the kernel
-        constants, every DISTINCT scalar value (per transform size) builds
-        and compiles a fresh kernel, cached thereafter. A program sweeping
-        many different scalar values on the same handler size will pay one
-        kernel compile per value and churn the builder caches — for that
+        Compile-cost note: because the scale is baked into the compiled
+        program's constants, every DISTINCT scalar value (per transform
+        size) compiles a fresh program, cached thereafter. A program
+        sweeping many different scalar values on the same handler size will
+        pay one compile per value and churn the jit caches — for that
         pattern prefer ``Normalization.custom(lambda v: v * s)`` (one
         compile, one extra elementwise pass) or apply the scale outside.
         """

@@ -36,48 +36,27 @@ def _dct2_consts(n: int):
 
 def _evenodd_perm(x):
     """Makhoul permutation [x0, x2, .., x_odd desc] via slice+flip (no
-    TPU gather): evens ascending then odds descending."""
+    gather): evens ascending then odds descending."""
     return jnp.concatenate([x[..., 0::2], x[..., 1::2][..., ::-1]], axis=-1)
-
-
-def _pallas_dct_batch(x):
-    """Batch size if the fused DCT kernel may run, else None."""
-    from ..config import config as _cfg
-
-    batch = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
-    if batch < (8 if _cfg.pallas_interpret else 128):
-        return None
-    from .pallas.dct import dct_pallas_supported
-
-    return batch if dct_pallas_supported(x.shape[-1], x.dtype) else None
 
 
 def dct2(x, scale=None):
     """(..., n) real -> scale * DCT-II, rustdct convention.
 
-    Even n with a {128,256} factor runs as ONE fused Pallas kernel
-    (ops/pallas/dct.py): since the Makhoul intermediate v is real, the
-    full FFT_n(v) is computed with a real-input first stage and the
-    half-spectrum unfold disappears entirely; the Makhoul permutation and
-    ``scale`` (the handler's scalar normalization) are folded into the
-    kernel constants. On the XLA path ``scale`` folds into the post
-    twiddle (constant-folded by jit)."""
+    Makhoul: an n-point real FFT of the even/odd-permuted input, then a
+    post twiddle; ``scale`` (the handler's scalar normalization) folds into
+    the post twiddle (constant-folded by jit)."""
     n = x.shape[-1]
     s = 1.0 if scale is None else scale
     if n == 1:
         return x * jnp.asarray(s, x.dtype) if scale is not None else x
-    batch = _pallas_dct_batch(x)
-    if batch is not None:
-        from .pallas.dct import dct2_pallas
-
-        shape = x.shape
-        return dct2_pallas(x.reshape(batch, n), scale).reshape(shape)
     w = _dct2_consts(n)
     m = n // 2 + 1
     v = _evenodd_perm(x)
     vr, vi = r2c(v, get_r2c_plan(n))
     # Hermitian unfold V[k] = conj(V[n-k]) for k >= m via flip/concat
-    # (fuses on TPU, unlike a gather): tail indices n-1..m == flip(1..n-m)
+    # (fuses into neighbours, unlike a gather): tail indices n-1..m ==
+    # flip(1..n-m)
     vr_full = jnp.concatenate([vr, vr[..., 1:n - m + 1][..., ::-1]], axis=-1)
     vi_full = jnp.concatenate([vi, -vi[..., 1:n - m + 1][..., ::-1]], axis=-1)
     wr, wi = _const((w[0] * s, w[1] * s), x.dtype)
@@ -92,7 +71,7 @@ def _dct3_consts(n: int):
 
 
 def _evenodd_unperm(u, n):
-    """Scatter z[perm] = u without a TPU gather: z[2t] = u[t] (t < ceil),
+    """Scatter z[perm] = u without a gather: z[2t] = u[t] (t < ceil),
     z[2t+1] = flip(u[ceil:]) — interleave via stack+reshape (odd n pads one
     dummy slot that the final slice drops)."""
     ceil = (n + 1) // 2
@@ -109,20 +88,12 @@ def dct3(x, scale=None):
     internally).
 
     n-point complex FFT via the transpose of the Makhoul DCT-II algorithm
-    (2-4x cheaper than the zero-padded 4n lowering). Even n with a
-    {128,256} factor runs as ONE fused Pallas kernel with the separable
-    pre-twiddle, the Makhoul constants and ``scale`` folded into the stage
-    constants (ops/pallas/dct.py)."""
+    (2-4x cheaper than the zero-padded 4n lowering); ``scale`` folds into
+    the pre-twiddle constants."""
     n = x.shape[-1]
     s = 1.0 if scale is None else scale
     if n == 1:
         return (0.5 * s) * x
-    batch = _pallas_dct_batch(x)
-    if batch is not None:
-        from .pallas.dct import dct3_pallas
-
-        shape = x.shape
-        return dct3_pallas(x.reshape(batch, n), scale).reshape(shape)
     pre = _dct3_consts(n)
     c = jnp.concatenate([x[..., :1] * 0.5, x[..., 1:]], axis=-1)
     prer, prei = _const((pre[0] * s, pre[1] * s), x.dtype)

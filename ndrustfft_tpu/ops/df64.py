@@ -1,29 +1,21 @@
-"""Emulated float64 transforms for TPU via double-float (two-float32) arithmetic.
+"""Double-float (two-float32) transforms: ~1e-13 accuracy from f32 ops only.
 
-This is the ``config.tpu_f64 = 'emulate'`` accuracy tier: true ~1e-13
-transforms on a device with no native f64 (reference capability: f64 is a
-first-class dtype, /root/reference/src/lib.rs:105-115).
+Native f64 (``complex128``/``float64`` inputs to the public functions) is
+the library's f64 path on every backend. This module keeps a dot-free
+double-float core whose programs contain only f32 operations: a radix-2
+Stockham autosort FFT (plus Bluestein for non-power-of-two n) built from
+elementwise adds/multiplies over double-float numbers — (hi, lo) pairs of
+f32 carrying ~49 mantissa bits (eps ~ 3.6e-15) — combined with the classic
+error-free transformations, Knuth two-sum and Dekker two-product with
+Veltkamp splitting (exact in IEEE round-to-nearest f32; XLA does not
+reassociate or FMA-contract elementwise float HLO, so the transformations
+survive compilation). Its traceable form :func:`c2c_dd` rides the pencil
+layer (``parallel.fftn_pencil_dd``), where every all_to_all moves plain f32
+planes.
 
-Why this works where the MXU lowerings cannot (DESIGN.md §9): every MXU dot
-accumulates in f32, capping any dot-based lowering at ~1e-7 relative error
-regardless of operand splitting. This core therefore uses NO dots at all —
-it is a radix-2 Stockham autosort FFT (plus Bluestein for non-power-of-two
-n) built entirely from elementwise VPU adds/multiplies over double-float
-numbers: (hi, lo) pairs of f32 carrying ~49 mantissa bits (eps ~ 3.6e-15),
-combined with the classic error-free transformations — Knuth two-sum and
-Dekker two-product with Veltkamp splitting (exact in IEEE round-to-nearest
-f32, which TPU VPU adds/multiplies are; XLA does not reassociate or
-FMA-contract elementwise float HLO, so the transformations survive
-compilation).
-
-The on-device program sees ONLY float32 arrays — f64 never reaches the TPU
-compiler (which SIGABRTs on it in this stack, NOTES_TPU.md). The f64 <->
-(hi, lo) split/recombine and the real/DCT/DST embeddings into C2C run
-host-side in exact (or f64-level) numpy.
-
-This is an accuracy tier, not a perf path: expect VPU-elementwise speeds
-(~10-30x a native f32 kernel transform). The f32 MXU kernels remain the
-performance story; 'demote' remains the middle (~3e-7) tier.
+The f64 <-> (hi, lo) split/recombine and the real/DCT/DST embeddings into
+C2C run host-side in exact (or f64-level) numpy. This is an accuracy tier,
+not a perf path: expect elementwise speeds, well below the engine's.
 """
 
 from __future__ import annotations
@@ -225,8 +217,7 @@ def c2c(x, sign: int):
 
     ``sign=-1`` forward, ``+1`` the unnormalized inverse. Input is split to
     (hi, lo) f32 pairs on the host, the f32-only core runs on the default
-    JAX backend (TPU when present), and the result recombines to complex128
-    on the host.
+    JAX backend, and the result recombines to complex128 on the host.
     """
     x = np.asarray(x, np.complex128)
     n = x.shape[-1]
@@ -243,9 +234,8 @@ def c2c(x, sign: int):
 
 
 # --------------------------------------------------------------------------
-# family embeddings (host f64 pre/post around the device core; the
-# normalization POLICY is applied by the caller — api._run_emulated —
-# at the reference's exact application points)
+# family embeddings (host f64 pre/post around the device core; these are
+# unnormalized — a caller applies the normalization policy)
 # --------------------------------------------------------------------------
 
 
@@ -254,10 +244,9 @@ def split64(x):
 
     Real input: ``(hi, lo)``; complex input: ``(re_hi, re_lo, im_hi,
     im_lo)``. The pairs satisfy hi + lo == x to ~2^-49 relative. This is
-    the boundary into the JITTABLE emulate tier: the leaves are plain f32
-    arrays, so they can live on a TPU device, cross shard_map, and be
-    closed over / passed through a user ``jax.jit`` (f64 itself cannot —
-    it SIGABRTs the TPU compiler in this stack, NOTES_TPU.md).
+    the boundary into the jittable double-float tier: the leaves are plain
+    f32 arrays, so they cross shard_map and all_to_all as f32 and can be
+    passed through a user ``jax.jit``.
     """
     x = np.asarray(x)
     if np.issubdtype(x.dtype, np.complexfloating):
@@ -280,12 +269,12 @@ def join64(*leaves):
 def c2c_dd(rh, rl, ih, il, sign: int = -1, axis: int = -1, scale=None):
     """TRACEABLE double-float C2C FFT along ``axis`` (unnormalized).
 
-    The jittable form of the ``tpu_f64='emulate'`` tier (round-3 verdict
-    next #5): operands and results are the four f32 double-float leaves
-    from :func:`split64`, so the whole computation is f32-only and can be
-    traced inside a user ``jax.jit`` targeting the TPU, composed with
-    ``vmap``/``shard_map``, and chained without host round-trips. Accuracy
-    matches the eager emulate path (~5e-15 relative at n<=1024).
+    The jittable form of the double-float tier: operands and results are
+    the four f32 double-float leaves from :func:`split64`, so the whole
+    computation is f32-only and can be traced inside a user ``jax.jit``,
+    composed with ``vmap``/``shard_map``, and chained without host
+    round-trips. Accuracy matches the eager :func:`c2c` (~5e-15 relative
+    at n<=1024).
 
     ``scale``: optional f64 scalar folded in as an exact double-float
     multiply (use 1/n for a Default-normalized inverse).

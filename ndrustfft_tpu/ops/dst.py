@@ -7,9 +7,9 @@ in the same rustdct convention (== scipy's unnormalized ``dst`` / 2, so the
 Default normalization's x2 produces scipy values — exactly the DCT story,
 src/lib.rs:736-741).
 
-TPU-first lowering: types 2-4 are EXACT flip/sign conjugations of the
-same-type DCT, so they ride every DCT execution path (fused Pallas kernels,
-dense MXU dot, XLA engine) for the cost of two fusable elementwise passes:
+Lowering: types 2-4 are EXACT flip/sign conjugations of the same-type
+DCT, so they ride the DCT lowerings for the cost of two fusable
+elementwise passes:
 
   DST-II  (x)[k] = DCT-II ((-1)^t * x)[n-1-k]
   DST-III (x)[k] = (-1)^k * DCT-III(flip(x))[k]   (incl. the x_{n-1}/2 edge)

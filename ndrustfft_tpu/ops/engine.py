@@ -1,16 +1,15 @@
 """Batched mixed-radix FFT engine on split re/im arrays (pure JAX/XLA).
 
-This is the framework's own transform math — the TPU replacement for the
+This is the framework's own transform math — the replacement for the
 rustfft/realfft butterfly kernels the reference delegates to (SURVEY.md §2.2
 N1/N2). It is NOT a wrapper over ``jnp.fft`` (that is used only as a test
-oracle). Everything here is reshape/transpose/matmul/elementwise, i.e. the
-op set XLA maps well onto the MXU/VPU; the fused Pallas kernels in
-``ops/pallas`` implement the same schedules with explicit VMEM staging.
+oracle). Everything here is reshape/matmul/elementwise: each stage is a
+dense DFT contraction plus a twiddle multiply, which XLA lowers to GEMMs and
+fused elementwise kernels.
 
-Complex numbers are carried as (re, im) float array pairs: TPU has no complex
-registers, and split layout lets every complex contraction lower to 4 real
-MXU einsums without XLA's complex->real legalization getting in the way
-(the Pallas kernels use the 3-multiplication form instead).
+Complex numbers are carried as (re, im) float array pairs, so every complex
+contraction lowers to 4 real einsums without XLA's complex->real
+legalization getting in the way.
 
 Layout convention: the transformed axis is always the LAST axis here; axis
 generality (the reference dispatcher's swap_axes/copy machinery,
@@ -23,7 +22,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import config as _config
 from ..config import matmul_precision
 from ..plan import C2CPlan, R2CPlan, get_c2c_plan
 
@@ -34,7 +32,7 @@ def _const(pair, dtype):
 
 
 def _cmul(ar, ai, br, bi):
-    """Elementwise complex multiply (VPU)."""
+    """Elementwise complex multiply."""
     return ar * br - ai * bi, ar * bi + ai * br
 
 
@@ -44,34 +42,12 @@ def c2c(xr, xi, plan: C2CPlan, scale=None):
     Unnormalized in both directions, matching rustfft semantics that the
     reference builds on (forward AND backward unnormalized; normalization is
     the handler's policy layer, reference src/lib.rs:313-338). ``scale``
-    (python float) multiplies the result; on the Pallas path it is folded
-    into the kernel constants (zero extra HBM passes — the fused
-    scalar-normalization path), on the XLA path into the dot epilogue.
+    (python float) multiplies the result; XLA fuses the multiply into the
+    last stage's epilogue.
     """
     if plan.kind == "bluestein":
         return _bluestein(xr, xi, plan, scale)
     dtype = xr.dtype
-    # beyond the single-kernel range (> _MAX_N, or failing its VMEM
-    # working-set bound): two-kernel four-step decomposition. The
-    # eligibility check owns the range logic — no size pre-gate here, so
-    # a _VMEM_LIMIT/_LIVE_COPIES change can't silently strand sizes on
-    # the slow engine
-    from .pallas.fft import fourstep_supported
-
-    if fourstep_supported(plan, dtype):
-        return _fourstep(xr, xi, plan, scale)
-    # fused Pallas kernel path (TPU, f32, ct plans). Real Mosaic needs
-    # batch >= 128 (narrower lane tiles hit unsupported-shape-cast, found
-    # empirically); the interpreter has no such limit
-    batch = int(np.prod(xr.shape[:-1])) if xr.ndim > 1 else 1
-    if batch >= (8 if _config.pallas_interpret else 128):
-        from .pallas.fft import c2c_pallas, pallas_supported
-
-        if pallas_supported(plan, dtype):
-            shape = xr.shape
-            yr, yi = c2c_pallas(xr.reshape(batch, plan.n),
-                                xi.reshape(batch, plan.n), plan, scale)
-            return yr.reshape(shape), yi.reshape(shape)
     stage_vals = [(f, m, _const(wf, dtype), _const(tw, dtype))
                   for f, m, wf, tw in plan.stages]
     base_vals = _const(plan.base, dtype)
@@ -89,9 +65,8 @@ _TRAIL = "abcdeghiklmnorsuvwxyz"
 
 
 def ct_valued(xr, xi, stages, base):
-    """Recursive Cooley-Tukey over stage constants given as jnp VALUES —
-    shared by the XLA path (constants folded by jit) and the (interpret-only)
-    fused rfft kernels.
+    """Recursive Cooley-Tukey over stage constants given as jnp VALUES
+    (constants folded by jit).
 
     Derivation (DIT, k = q*m + p, t = f*t' + j):
       X[q*m + p] = sum_j W_f^{jq} * ( W_n^{jp} * FFT_m(x[j::f])[p] )
@@ -191,26 +166,13 @@ def ct_first_valued(xr, xi, stages, base):
 def c2c_axis0(xr, xi, plan: C2CPlan, scale=None):
     """C2C FFT along axis 0 (trailing dims batch) without any HBM transpose.
 
-    Routes to the axis-0 Pallas kernel when eligible; falls back to the
-    first-axis XLA math. Bluestein plans use the lane-last path via moveaxis
-    (rare sizes). ``scale`` as in :func:`c2c`."""
+    Bluestein plans use the lane-last path via moveaxis (rare sizes).
+    ``scale`` as in :func:`c2c`."""
     if plan.kind == "bluestein":
         yr, yi = _bluestein(jnp.moveaxis(xr, 0, -1), jnp.moveaxis(xi, 0, -1),
                             plan, scale)
         return jnp.moveaxis(yr, -1, 0), jnp.moveaxis(yi, -1, 0)
     dtype = xr.dtype
-    cols = int(np.prod(xr.shape[1:])) if xr.ndim > 1 else 1
-    from ..config import config as _cfg
-
-    if (cols >= (8 if _cfg.pallas_interpret else 128)
-            and _cfg.axis0_strategy == "pallas"):
-        from .pallas.fft import c2c_pallas_axis0, pallas_supported
-
-        if pallas_supported(plan, dtype):
-            shape = xr.shape
-            yr, yi = c2c_pallas_axis0(xr.reshape(plan.n, cols),
-                                      xi.reshape(plan.n, cols), plan, scale)
-            return yr.reshape(shape), yi.reshape(shape)
     stage_vals = [(f, m, _const(wf, dtype), _const(tw, dtype))
                   for f, m, wf, tw in plan.stages]
     base_vals = _const(plan.base, dtype)
@@ -219,63 +181,6 @@ def c2c_axis0(xr, xi, plan: C2CPlan, scale=None):
         s = jnp.asarray(scale, dtype)
         yr, yi = yr * s, yi * s
     return yr, yi
-
-
-def _fourstep(xr, xi, plan: C2CPlan, scale=None):
-    """Four-step (Bailey) long transform: n = n1*n2 > the kernels' _MAX_N.
-
-    With t = t1*n2 + t2 and k = k1 + n1*k2:
-
-      X[k1 + n1 k2] = sum_t2 W_n2^{t2 k2} [ W_n^{t2 k1}
-                        * sum_t1 W_n1^{t1 k1} x[t1 n2 + t2] ]
-
-    Step 1+2: the axis-mid kernel transforms the t1 (middle) axis of the
-    (B, n1, n2) view — a pure reshape — with the inter-stage twiddle
-    W_n^{k1 t2} FUSED into the kernel's exit multiply (four_n). Step 3+4:
-    when n2 has a twostep split (every power-of-two split does), ONE
-    lane-dim kernel transforms t2 with the user scale folded into its
-    constants and STORES TRANSPOSED, absorbing the (k1, k2) -> (k2, k1)
-    global transpose every four-step formulation owes — TWO read+write
-    HBM pass-pairs total. Otherwise the fallback pays the transpose as a
-    separate XLA pass (three pass-pairs). Either way beats the
-    multi-stage einsum engine's one pass per stage plus un-fused
-    twiddles. rustfft parity: /root/reference/src/lib.rs:295-297 (any n
-    at full speed)."""
-    from ..config import config as _cfg
-    from .pallas.fft import _build_call_axis_mid, dot_mode, fourstep_split
-
-    n = plan.n
-    n1, n2 = fourstep_split(n)
-    shape = xr.shape
-    batch = int(np.prod(shape[:-1])) if xr.ndim > 1 else 1
-    xr3 = xr.reshape(batch, n1, n2)
-    xi3 = xi.reshape(batch, n1, n2)
-    run1 = _build_call_axis_mid(n1, plan.sign, batch, n2, str(xr.dtype),
-                                bool(_cfg.pallas_interpret), dot_mode(),
-                                1.0, int(_cfg.pallas_tile),
-                                str(_cfg.mid_body), four_n=n,
-                                mid_split=int(_cfg.mid_split))
-    yr, yi = run1(xr3, xi3)
-    from .pallas.fft import (
-        _build_call_lane_store_t, _twostep_split, mid_core_body,
-    )
-
-    if _twostep_split(n2) is not None:
-        # step 3+4 in ONE kernel: lane-dim FFT with a transposed store —
-        # the four-step's global transpose costs no separate HBM pass
-        # (two pass-pairs total for any n)
-        run2 = _build_call_lane_store_t(
-            n2, plan.sign, batch, n1, str(xr.dtype),
-            bool(_cfg.pallas_interpret), dot_mode(),
-            float(1.0 if scale is None else scale), mid_core_body())
-        yr, yi = run2(yr, yi)                    # (B, k2, k1)
-        return yr.reshape(shape), yi.reshape(shape)
-    sub = get_c2c_plan(n2, plan.sign)
-    yr, yi = c2c(yr.reshape(batch * n1, n2), yi.reshape(batch * n1, n2),
-                 sub, scale)
-    yr = jnp.swapaxes(yr.reshape(batch, n1, n2), 1, 2)
-    yi = jnp.swapaxes(yi.reshape(batch, n1, n2), 1, 2)
-    return yr.reshape(shape), yi.reshape(shape)
 
 
 def _bluestein(xr, xi, plan: C2CPlan, scale=None):
@@ -319,17 +224,6 @@ def r2c(x, plan: R2CPlan):
             return _r2c_rowpair(x, plan)
         zr, zi = c2c(x, jnp.zeros_like(x), plan.sub)
         return zr[..., :m], zi[..., :m]
-    batch = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
-    if batch >= (8 if _config.pallas_interpret else 128):
-        from .pallas.rfft import r2c_pallas_nat, rfft_nat_supported
-
-        if rfft_nat_supported(plan, x.dtype):
-            # natural-layout kernel: consumes (B, n) directly — the even/odd
-            # de-interleave rides the in-kernel entry transpose instead of
-            # an external strided-slice HBM pass
-            shape = x.shape[:-1]
-            sr, si = r2c_pallas_nat(x.reshape(batch, n), plan)
-            return sr.reshape(shape + (m,)), si.reshape(shape + (m,))
     return r2c_packed(x[..., 0::2], x[..., 1::2], plan)
 
 
@@ -366,20 +260,9 @@ def r2c_packed(xe, xo, plan: R2CPlan):
     directly from their own layout (e.g. the DCT-I even extension) without
     materializing the packed sequence; requires ``plan.half``.
     """
-    n, m = plan.n, plan.m
-    h = n // 2
-    batch = int(np.prod(xe.shape[:-1])) if xe.ndim > 1 else 1
-    if batch >= (8 if _config.pallas_interpret else 128):
-        from .pallas.rfft import r2c_pallas, rfft_pallas_supported
-
-        if rfft_pallas_supported(plan, xe.dtype):
-            shape = xe.shape[:-1]
-            sr, si = r2c_pallas(xe.reshape(batch, h), xo.reshape(batch, h),
-                                plan)
-            return sr.reshape(shape + (m,)), si.reshape(shape + (m,))
     zr, zi = c2c(xe, xo, plan.sub)  # FFT of z = xe + i*xo, length h
     # Z[k] for k = 0..h and the mirror Z[(h-k) mod h], built with
-    # flip/concat (fuses on TPU) instead of a gather:
+    # flip/concat (fuses into neighbours) instead of a gather:
     zrk = jnp.concatenate([zr, zr[..., :1]], axis=-1)  # Z[k], k=0..h
     zik = jnp.concatenate([zi, zi[..., :1]], axis=-1)
     zrm = jnp.concatenate([zr[..., :1], zr[..., 1:][..., ::-1], zr[..., :1]],
@@ -402,26 +285,14 @@ def c2r(sr, si, n: int, scale=None, mask_dc_nyq=True):
     Implements the reference's full pre-step order (src/lib.rs:506-523):
     ``scale`` (the normalization, applied FIRST on the spectrum) then the
     DC — and for even n Nyquist — imag zeroing (``mask_dc_nyq``), then the
-    unnormalized inverse. On the natural-layout Pallas path both pre-steps
-    are fused into the kernel constants (zero extra HBM passes) and the
-    even/odd interleave happens in-kernel.
+    unnormalized inverse. Both pre-steps are elementwise, so XLA fuses them
+    into the Hermitian-extension pass.
     """
     m = n // 2 + 1
     dtype = sr.dtype
     if n == 1:
         y = sr[..., :1]
         return y * jnp.asarray(scale, dtype) if scale is not None else y
-    if n % 2 == 0:
-        batch = int(np.prod(sr.shape[:-1])) if sr.ndim > 1 else 1
-        if batch >= (8 if _config.pallas_interpret else 128) and mask_dc_nyq:
-            from ..plan import get_r2c_plan
-            from .pallas.rfft import c2r_pallas_nat, rfft_nat_supported
-
-            if rfft_nat_supported(get_r2c_plan(n), dtype):
-                shape = sr.shape[:-1]
-                y = c2r_pallas_nat(sr.reshape(batch, m),
-                                   si.reshape(batch, m), n, scale)
-                return y.reshape(shape + (n,))
     if mask_dc_nyq:
         mask = jnp.ones((m,), dtype).at[0].set(0.0)
         if n % 2 == 0:

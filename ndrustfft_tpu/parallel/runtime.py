@@ -2,7 +2,7 @@
 
 The reference is strictly single-process (SURVEY.md §2.3: no MPI/NCCL
 anywhere in Cargo.lock); its only concurrency is a rayon thread pool. The
-TPU-native equivalent of "use more hardware" beyond one host is a
+JAX equivalent of "use more hardware" beyond one host is a
 multi-PROCESS JAX runtime: one process per host (or per chip group), a
 coordinator service, and a global device mesh spanning every process —
 after which the pencil layer (``ndrustfft_tpu.parallel.pencil``) works
@@ -15,7 +15,7 @@ pitfalls handled (environment flags must be set before first JAX use).
 devices. Cross-process operation is exercised end-to-end by
 ``__graft_entry__.dryrun_multichip(n, processes=2)`` and
 tests/test_multiprocess.py, which launch real worker processes over a CPU
-collectives backend — the same code path a TPU pod slice uses, minus ICI.
+collectives backend — the same code path a multi-host GPU cluster uses.
 """
 
 from __future__ import annotations
@@ -34,9 +34,9 @@ def initialize(coordinator_address: Optional[str] = None,
                cpu_virtual_devices: Optional[int] = None) -> None:
     """Initialize the multi-process JAX runtime for this process.
 
-    Must run before any other JAX call in the process. On TPU pods the
-    arguments are optional (the TPU runtime autodetects them); on
-    CPU/testing topologies pass them explicitly.
+    Must run before any other JAX call in the process. Pass the
+    coordinator address, process count and process id explicitly: nothing
+    on a plain GPU host or a CPU test topology lets JAX detect them.
 
     ``cpu_virtual_devices``: for CPU-backend runs (tests, dry runs), the
     number of virtual host devices THIS process contributes — sets

@@ -17,10 +17,10 @@ itself*:
 - the partition callback requests the input re-sharded so the transform
   axis is chip-LOCAL, its mesh axis moved onto another array dim (the
   same rotation :func:`parallel.pencil.plan_pencil` performs) — the
-  partitioner realizes the move as ONE tiled ``all-to-all`` over ICI,
+  partitioner realizes the move as ONE tiled ``all-to-all``,
   never an all-gather (pinned by tests/test_par_spmd.py);
 - the per-shard lowering runs the ordinary serial impl on the local
-  block, keeping every Pallas kernel route;
+  block;
 - same-shape transforms declare a sharding-PRESERVING contract (the
   Shardy rule maps each dim's factor through), so the output is restored
   to the caller's sharding with a second tiled all-to-all — under jit a
@@ -34,9 +34,9 @@ itself*:
   all_to_all per hop, no replication).
 
 Autodiff: ``custom_partitioning`` has no differentiation rule, so every
-call is wrapped in the library's engine-tangent ``custom_jvp`` (the
-api._diffable pattern): the primal keeps the partitioned fast path, the
-tangent/adjoint run the pure-lax engine twin under GSPMD.
+call is wrapped in an engine-tangent ``custom_jvp``: the primal keeps the
+partitioned fast path, the tangent/adjoint run the plain serial impl
+(pure lax) under GSPMD.
 """
 
 from __future__ import annotations
@@ -132,10 +132,10 @@ def _par_spmd_fn(kind, handler, axis, shape, dtype, cfg_key):
     exactly like api._jitted.
 
     custom_partitioning forbids closure constants in the traced body
-    (``assert not len(consts)``), and every engine/kernel lowering here
-    bakes twiddle/weight tables in as constants — so the body is traced
+    (``assert not len(consts)``), and every engine lowering here
+    bakes twiddle tables in as constants — so the body is traced
     to a jaxpr once, its constvars LIFTED into explicit operands
-    (replicated in the partition rule: weight tables are per-chip state
+    (replicated in the partition rule: twiddle tables are per-device state
     anyway), and the cp body just evaluates the lifted jaxpr."""
     from jax._src import core as _core
     from jax._src.interpreters import partial_eval as _pe
@@ -172,7 +172,7 @@ def _par_spmd_fn(kind, handler, axis, shape, dtype, cfg_key):
 
         def lower_fn(x, *cs):
             # local block with the transform axis full: the ordinary
-            # serial impl applies, kernel routes intact. Constants are
+            # serial impl applies. Constants are
             # re-derived at the LOCAL shape (the lifted ones were traced
             # at the global shape); closure constants are legal here.
             return impl(x, handler, axis)
@@ -211,10 +211,9 @@ def _par_spmd_fn(kind, handler, axis, shape, dtype, cfg_key):
 
 def par_spmd_call(kind, x, handler, axis):
     """Apply ``kind`` along ``axis`` through the SPMD-partitioned path,
-    with full AD (engine-tangent custom_jvp — see api._diffable)."""
+    with full AD (engine-tangent custom_jvp, see the module docstring)."""
     from ..api import _IMPLS, _config_key
-    from ..config import (matmul_precision_name, pallas_override,
-                          precision_override)
+    from ..config import matmul_precision_name, precision_override
 
     axis = axis % x.ndim
     cp, consts = _par_spmd_fn(kind, handler, axis, tuple(x.shape),
@@ -227,7 +226,7 @@ def par_spmd_call(kind, x, handler, axis):
     prec = matmul_precision_name()
 
     def engine_fn(v):
-        with pallas_override(False), precision_override(prec):
+        with precision_override(prec):
             return impl(v, handler, axis)
 
     g = jax.custom_jvp(f_cp)
@@ -235,8 +234,7 @@ def par_spmd_call(kind, x, handler, axis):
     def jvp(primals, tangents):
         (v,), (t,) = primals, tangents
         # nested AD: the custom-call has no rules under a forward-mode
-        # trace — run the whole nesting on the engine twin (see
-        # api._diffable)
+        # trace — run the whole nesting on the engine twin
         from jax._src.interpreters import ad as _ad
 
         y = (engine_fn if isinstance(v, _ad.JVPTracer) else f_cp)(v)

@@ -1,16 +1,16 @@
 """Plan layer: factorization + plan-time twiddle/DFT constants.
 
-TPU-native analog of the reference's plan cache: where ``FftHandler`` holds
+The analog of the reference's plan cache: where ``FftHandler`` holds
 ``Arc<dyn Fft>`` plans built eagerly by rustfft's planner (reference
 src/lib.rs:294-304), a :class:`C2CPlan` here is a static *schedule* — a factor
 list plus numpy constant tables (base DFT matrices, inter-stage twiddles,
 Bluestein chirps) — built once per (n, direction) and closed over by the
 traced JAX computation, where they become on-device constants.
 
-Design notes (TPU-first, not a port):
+Design notes (not a port):
   * The reference delegates to rustfft's mixed-radix/Rader/Bluestein planner
-    (SURVEY.md §2.2 N1). On TPU the FLOPs should land on the MXU, so the
-    planner factors n into few LARGE factors (each ≤ 128 = one MXU tile) and
+    (SURVEY.md §2.2 N1). Here the FLOPs land in matrix multiplies, so the
+    planner factors n into few LARGE factors (each ≤ max_base_radix) and
     lowers each base DFT to a dense matmul — a four-step/six-step FFT — rather
     than many tiny scalar butterflies. Fewer stages also means fewer HBM
     round-trips, which is the real bottleneck.
@@ -128,15 +128,11 @@ def next_smooth(n: int) -> int:
 def blue_sub_len(n: int) -> int:
     """Bluestein convolution length M >= 2n-1 for transform size n.
 
-    Plain ``next_smooth`` picks the FLOP-minimal 3-smooth M, but an M that
-    is not a multiple of 128 strands the two length-M sub-FFTs on the
-    GENERIC lane-last Pallas kernel, whose deep tiny-factor schedule is a
-    measured Mosaic compile pathology (n=2049 -> M=4374 = 2*3^7, f=243:
-    the nddct3 bench row alone took 811 s to compile on v5e). A 3-smooth
-    multiple of 128 keeps both sub-FFTs on the twostep kernel
-    (_twostep_split: m in {128,256}, f <= 256 — compiles in seconds) for
-    <= 1/3 extra padding (2049 -> M=4608, +5.3%). Below 256 the dense
-    kernels cover any M, so the FLOP-minimal choice stands.
+    Plain ``next_smooth`` picks the FLOP-minimal 3-smooth M; above 256
+    this picks the smallest 3-smooth multiple of 128 instead, for <= 1/3
+    extra padding (2049 -> M=4608, +5.3%), which keeps the sub-FFTs'
+    stage matmuls on whole 128-wide tiles. Whether the FLOP-minimal M is
+    faster on the GPU is not measured yet.
     """
     need = 2 * n - 1
     M = next_smooth(need)

@@ -1,9 +1,10 @@
 """Profiling and roofline accounting (SURVEY.md §5 tracing/profiling).
 
-The reference's only perf tooling is criterion wall-times; the TPU build adds
-(a) a thin wrapper over the JAX profiler for trace capture and (b) a roofline
-model so benchmark numbers can be reported as % of the HBM-bandwidth bound —
-the driver-defined metric (BASELINE.json).
+The reference's only perf tooling is criterion wall-times; this build adds
+(a) a thin wrapper over the JAX profiler for trace capture, (b) one table
+of device peaks keyed by ``device_kind`` so benchmark numbers can be
+reported as a share of the device-memory roofline, and (c) a model of the
+pencil layer's weak scaling over the device interconnect.
 """
 
 from __future__ import annotations
@@ -13,27 +14,47 @@ import math
 import time
 from dataclasses import dataclass
 
-# Published per-chip specs used for roofline accounting.
-CHIP_SPECS = {
-    # name: (HBM GB/s, peak f32 TFLOP/s [bf16/2 for v5e-class MXU])
-    "tpu v5 lite": (819.0, 98.5),
-    "tpu v5e": (819.0, 98.5),
-    "tpu v4": (1228.0, 137.5),
-    "tpu v5p": (2765.0, 229.5),
-    "tpu v6e": (1640.0, 459.0),
-    "cpu": (50.0, 1.0),
+
+@dataclass(frozen=True)
+class DeviceSpec:
+    """Published peaks of one device (dense rates, no sparsity)."""
+
+    hbm_gbps: float       # device-memory bandwidth, GB/s
+    f32_tflops: float     # float32 outside the tensor cores, TFLOP/s
+    tf32_tflops: float    # TF32 tensor-core rate, TFLOP/s
+    link_gbps: float      # interconnect to each other device, GB/s each way
+    source: str
+
+
+# Keyed by jax.Device.device_kind. A device that is not listed raises: a
+# roofline share against a guessed peak is worse than none.
+DEVICE_SPECS = {
+    "NVIDIA H100 80GB HBM3": DeviceSpec(
+        hbm_gbps=3350.0, f32_tflops=67.0, tf32_tflops=495.0,
+        link_gbps=450.0,
+        source="NVIDIA H100 Tensor Core GPU datasheet, SXM5 column; "
+               "rates at the 700 W power limit"),
+    # placeholder so the CPU tests can exercise the accounting; these are
+    # not the peaks of any machine and no result is reported against them
+    "cpu": DeviceSpec(hbm_gbps=50.0, f32_tflops=1.0, tf32_tflops=1.0,
+                      link_gbps=10.0,
+                      source="placeholder for CPU tests, not a device spec"),
 }
 
 
-def chip_spec(device=None):
+def chip_spec(device=None) -> DeviceSpec:
+    """The :class:`DeviceSpec` of ``device`` (default: the first device).
+
+    Raises ``KeyError`` for a ``device_kind`` the table does not list."""
     import jax
 
-    dev = device or jax.devices()[0]
-    kind = getattr(dev, "device_kind", "cpu").lower()
-    for name, spec in CHIP_SPECS.items():
-        if name in kind:
-            return spec
-    return CHIP_SPECS["cpu"]
+    kind = (device or jax.devices()[0]).device_kind
+    try:
+        return DEVICE_SPECS[kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak table entry for device_kind {kind!r}; add its "
+            f"published peaks to DEVICE_SPECS in {__name__}") from None
 
 
 @dataclass
@@ -95,49 +116,23 @@ def measure(fn, *args, reps: int = 5, warmup: int = 2) -> float:
 
 
 def roofline_c2c(fn, x, n: int, lanes: int, reps: int = 5) -> Roofline:
-    hbm, peak = chip_spec()
+    spec = chip_spec()
     secs = measure(fn, x, reps=reps)
     item = x.dtype.itemsize // (2 if "complex" in str(x.dtype) else 1)
     return Roofline(
         seconds=secs,
         flops=fft_flops(n, lanes),
         bytes=fft_bytes(n, lanes, item, complex_io=True),
-        hbm_gbps=hbm,
-        peak_tflops=peak,
+        hbm_gbps=spec.hbm_gbps,
+        peak_tflops=spec.f32_tflops,
     )
-
-
-# --------------------------------------------------------------------------
-# ICI (inter-chip interconnect) model for the pencil layer (verdict #6):
-# per-MESH-AXIS bidirectional bandwidth in bytes/s — 2 links per torus axis
-# x per-link bidirectional bandwidth (the "How to Scale Your Model" numbers:
-# v4/v5e 4.5e10 B/s per link, v5p/v6e 9e10).
-ICI_AXIS_BW = {
-    "tpu v5 lite": 9.0e10,
-    "tpu v5e": 9.0e10,
-    "tpu v4": 9.0e10,
-    "tpu v5p": 1.8e11,
-    "tpu v6e": 1.8e11,
-    "cpu": 1.0e10,  # virtual-mesh placeholder; model only
-}
-
-
-def ici_axis_bw(device=None) -> float:
-    import jax
-
-    dev = device or jax.devices()[0]
-    kind = getattr(dev, "device_kind", "cpu").lower()
-    for name, bw in ICI_AXIS_BW.items():
-        if name in kind:
-            return bw
-    return ICI_AXIS_BW["cpu"]
 
 
 @dataclass
 class PencilEstimate:
     """Model-based weak-scaling estimate for a pencil spectral pipeline."""
 
-    t_compute: float       # seconds of on-chip transform time per step call
+    t_compute: float       # seconds of on-device transform time per call
     t_comm: float          # seconds of all_to_all wire time per step call
     n_collectives: int
     efficiency_overlapped: float     # comm hidden behind compute where possible
@@ -166,10 +161,12 @@ def predict_pencil_weak_scaling(local_shape, mesh_shape, itemsize: int = 8,
     ``n_transform_passes`` axis transforms costs one HBM read+write of the
     local complex volume at ``hbm_fraction`` of peak HBM bandwidth; each
     sharded-axis step performs one all_to_all moving local_bytes*(k-1)/k
-    per chip over the torus axis at ``axis_bw``; forward+inverse perform
+    per device out over its links at ``axis_bw`` bytes/s (default: the
+    device table's per-direction link rate); forward+inverse perform
     2 all-to-alls each on a 2-D mesh. Weak-scaling efficiency = single-chip
     time / multi-chip time for the same per-chip volume; with both terms
     linear in the local volume it depends only on the comm/compute ratio.
+    Its output is a model, never a measurement.
 
     ``wire_itemsize`` models ``pencil_transform(wire_dtype=...)``: bytes on
     the wire scale by wire_itemsize/itemsize (bf16 wire on a complex64
@@ -182,9 +179,9 @@ def predict_pencil_weak_scaling(local_shape, mesh_shape, itemsize: int = 8,
     import numpy as np
 
     if hbm_gbps is None:
-        hbm_gbps = chip_spec()[0]
+        hbm_gbps = chip_spec().hbm_gbps
     if axis_bw is None:
-        axis_bw = ici_axis_bw()
+        axis_bw = chip_spec().link_gbps * 1e9
     v_bytes = float(np.prod(local_shape)) * itemsize
     planes = 2.0 if payload_complex else 1.0
     w_bytes = v_bytes * ((planes * wire_itemsize / itemsize)
@@ -204,7 +201,7 @@ def predict_pencil_weak_scaling(local_shape, mesh_shape, itemsize: int = 8,
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/ndrustfft_tpu_trace"):
+def trace(logdir: str):
     """Capture a JAX profiler trace around a block (view with xprof/tensorboard)."""
     import jax
 

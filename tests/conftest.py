@@ -1,7 +1,7 @@
 """Test configuration: run on CPU with 8 virtual devices and x64 enabled.
 
-The driver's bench runs on the real TPU chip; tests run on the host CPU so
-that (a) f64 goldens hit the 1e-12 parity target and (b) multi-chip sharding
+Measurements run on the GPU (chip_smoke.py, bench.py); tests run on the host
+CPU so that (a) f64 goldens hit the 1e-12 parity target and (b) multi-device sharding
 is exercised on a virtual 8-device mesh (the standard
 --xla_force_host_platform_device_count trick, SURVEY.md §4).
 """

@@ -1,5 +1,5 @@
 """The five BASELINE.json driver configs, end-to-end (CPU, scaled where a
-full-size run would be too slow for CI — full sizes run on TPU via bench.py).
+full-size run would be too slow for CI — full sizes run on the GPU via chip_smoke.py and bench.py).
 """
 
 import numpy as np
@@ -71,8 +71,9 @@ def test_config4_dct_batched_1024_axis1(dct_type, dtype, rtol):
 
 
 def test_config5_3d_r2c_pencil_pipeline():
-    # "3-D R2C 256^3 pencil-decomposed spectral pipeline sharded over a TPU
-    # mesh" — run at 64^3 on the virtual 8-device mesh (full size on TPU)
+    # "3-D R2C 256^3 pencil-decomposed spectral pipeline sharded over a
+    # device mesh" — run at 64^3 on the virtual 8-device mesh (full size
+    # on four GPUs: chip_smoke.py --four)
     from ndrustfft_tpu.parallel import irfftn_pencil, rfftn_pencil
 
     rng = np.random.default_rng(3)

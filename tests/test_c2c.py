@@ -218,26 +218,24 @@ def test_axis0_matches_lastaxis_path():
     np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12 * np.abs(a).max())
 
 
-@pytest.mark.parametrize("strategy", ["moveaxis", "einsum", "pallas"])
-def test_axis0_strategies_agree(strategy):
-    # all three axis-0 execution strategies must produce the same result
+@pytest.mark.parametrize("strategy,n", [("moveaxis", 64), ("einsum", 64),
+                                        ("einsum", 96)])
+def test_axis0_strategies_agree(strategy, n):
+    # both axis-0 execution strategies must produce the same result, on a
+    # power of two and on a mixed-radix size
     from ndrustfft_tpu import config
     from ndrustfft_tpu.api import _jitted
 
     rng = np.random.default_rng(13)
-    v = (rng.standard_normal((64, 16)) + 1j * rng.standard_normal((64, 16))
+    v = (rng.standard_normal((n, 16)) + 1j * rng.standard_normal((n, 16))
          ).astype(np.complex64)
-    old_s, old_i, old_u = (config.axis0_strategy, config.pallas_interpret,
-                           config.use_pallas)
+    old_s = config.axis0_strategy
     try:
         config.axis0_strategy = strategy
-        config.pallas_interpret = strategy == "pallas"
-        config.use_pallas = strategy == "pallas"
         _jitted.cache_clear()
-        got = np.asarray(ndfft(jnp.asarray(v), FftHandler(64), axis=0))
+        got = np.asarray(ndfft(jnp.asarray(v), FftHandler(n), axis=0))
     finally:
-        config.axis0_strategy, config.pallas_interpret = old_s, old_i
-        config.use_pallas = old_u
+        config.axis0_strategy = old_s
         _jitted.cache_clear()
     ref = np.fft.fft(v, axis=0)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
@@ -339,14 +337,9 @@ def test_long_transform_1m_points():
 
 
 def test_long_transform_fourstep_xla_transpose_leg():
-    # four-step split whose n2 has NO twostep split (243 = 3^5): the step
-    # 3+4 lane-store-t kernel is ineligible, so the fallback pays the
-    # global transpose as a separate XLA pass (engine._fourstep tail)
-    from ndrustfft_tpu.ops.pallas.fft import _twostep_split, fourstep_split
-
+    # a long mixed-radix transform (no power-of-two split beyond 2^8): the
+    # engine recursion over radix-3 stages stays at f32 accuracy
     n = 559872  # 2^8 * 3^7
-    n1, n2 = fourstep_split(n)
-    assert _twostep_split(n2) is None, (n1, n2)
     rng = np.random.default_rng(52)
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
         np.complex64)
@@ -357,16 +350,15 @@ def test_long_transform_fourstep_xla_transpose_leg():
 
 
 def test_huge_prime_bluestein_over_fourstep():
-    # prime n whose chirp length M = next_smooth(2n-1) itself exceeds
-    # _MAX_N: the Bluestein sub-FFTs must recurse through the four-step
-    # long-transform path (rustfft any-n parity at ANY magnitude,
+    # prime n whose chirp length M = next_smooth(2n-1) is itself a long
+    # transform: the Bluestein sub-FFTs recurse through the multi-level
+    # engine (rustfft any-n parity at ANY magnitude,
     # /root/reference/src/lib.rs:295-297)
-    from ndrustfft_tpu.ops.pallas.fft import _MAX_N
     from ndrustfft_tpu.plan import get_c2c_plan
 
     n = 100003  # prime
     plan = get_c2c_plan(n, -1)
-    assert plan.kind == "bluestein" and plan.M > _MAX_N, (plan.kind, plan.M)
+    assert plan.kind == "bluestein" and plan.M > 1 << 16, (plan.kind, plan.M)
     rng = np.random.default_rng(53)
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
         np.complex64)
@@ -379,7 +371,7 @@ def test_huge_prime_bluestein_over_fourstep():
 
 
 def test_norm_scalar():
-    # Normalization.scalar(c): TPU-native fused policy == custom(v -> v*c)
+    # Normalization.scalar(c): the fused policy == custom(v -> v*c)
     v = np.array([1 + 1j, 2 + 2j, 3 + 3j])
     h = FftHandler(3).normalization(Normalization.scalar(2.0 / 3.0))
     out = np.asarray(ndifft(ndfft(jnp.asarray(v), h, 0), h, 0))
@@ -390,35 +382,25 @@ def test_norm_scalar():
 
 
 def test_norm_scalar_fused_kernel_paths():
-    # the scalar rides the kernel constants on every dispatch path: compare
-    # the fused result against an explicit multiply, Pallas kernels on
-    # (interpret mode) and off, for minor / middle / leading axes
-    from ndrustfft_tpu.config import config
-
+    # the scalar folds into the transform on every dispatch path: compare
+    # the fused result against an explicit multiply for minor / middle /
+    # leading axes
     rng = np.random.default_rng(7)
     x = (rng.standard_normal((128, 128, 128))
          + 1j * rng.standard_normal((128, 128, 128))).astype(np.complex64)
     c = 0.37
     h = FftHandler(128).normalization(Normalization.scalar(c))
     h_none = FftHandler(128).normalization(Normalization.NONE)
-    old_i, old_u = config.pallas_interpret, config.use_pallas
-    try:
-        for pallas in (False, True):
-            config.pallas_interpret = pallas
-            config.use_pallas = pallas
-            for axis in (0, 1, 2):
-                got = np.asarray(ndifft(jnp.asarray(x), h, axis=axis))
-                ref = c * np.asarray(ndifft(jnp.asarray(x), h_none,
-                                            axis=axis))
-                # f32 + bf16x3: folding c into the constants rounds
-                # differently from an exact post-multiply (~1e-5 rel)
-                np.testing.assert_allclose(got, ref, rtol=5e-4, atol=5e-4)
-    finally:
-        config.pallas_interpret, config.use_pallas = old_i, old_u
+    for axis in (0, 1, 2):
+        got = np.asarray(ndifft(jnp.asarray(x), h, axis=axis))
+        ref = c * np.asarray(ndifft(jnp.asarray(x), h_none, axis=axis))
+        # f32: folding c into the last stage rounds differently from an
+        # exact post-multiply (~1e-6 rel)
+        np.testing.assert_allclose(got, ref, rtol=5e-4, atol=5e-4)
 
 
 def test_norm_default_fused_matches_explicit():
-    # ifft's default 1/n is folded into the kernel constants; it must equal
+    # ifft's default 1/n is folded into the last stage; it must equal
     # the explicit post-multiply to rounding error
     rng = np.random.default_rng(3)
     x = (rng.standard_normal((3, 384))

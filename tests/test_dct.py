@@ -141,33 +141,21 @@ def test_vmap_equivalence_dct():
 @pytest.mark.parametrize("n", [1283, 2049])
 @pytest.mark.parametrize("dct_type", [2, 3])
 def test_dct23_axis_mid_bluestein_kernel(n, dct_type):
-    """Odd n beyond the dense cap whose FFT plans as Bluestein (2049 is the
-    reference dct2d bench's odd twin) rides the Makhoul-over-chirp-z
-    axis-mid path: middle-axis perm/twiddle around ONE fused kernel pass,
-    instead of moveaxis + the engine Bluestein (whose M=4374 sub-FFTs were
-    the round-3 811 s Mosaic compile blowout, BASELINE.md)."""
-    from ndrustfft_tpu.config import config
-    from ndrustfft_tpu.ops.pallas.dct import dct_dense_mid_supported
-    from ndrustfft_tpu.ops.pallas.fft import blue_mid_supported
+    """Odd n whose FFT plans as Bluestein (2049 is the reference dct2d
+    bench's odd twin) on the middle axis: the Makhoul lowering over the
+    chirp-z C2C matches scipy, and a scalar normalization folds into the
+    Makhoul twiddle."""
     from ndrustfft_tpu.plan import get_c2c_plan
 
     plan = get_c2c_plan(n, -1)
     assert plan.kind == "bluestein"
-    assert not dct_dense_mid_supported(n, jnp.float32)
-    old = (config.use_pallas, config.pallas_interpret)
-    config.use_pallas = True
-    config.pallas_interpret = True
-    try:
-        assert blue_mid_supported(plan, jnp.float32)
-        rng = np.random.default_rng(n + dct_type)
-        x = rng.standard_normal((2, n, 16)).astype(np.float32)
-        h = DctHandler(n)
-        got = np.asarray(ND[dct_type](jnp.asarray(x), h, axis=1))
-        ref = sf.dct(x.astype(np.float64), type=dct_type, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
-        # scalar normalization folds into the Makhoul twiddle
-        hs = DctHandler(n).normalization(Normalization.scalar(0.3))
-        gots = np.asarray(ND[dct_type](jnp.asarray(x), hs, axis=1))
-        assert np.abs(gots - 0.15 * ref).max() / np.abs(ref).max() < 1e-4
-    finally:
-        config.use_pallas, config.pallas_interpret = old
+    rng = np.random.default_rng(n + dct_type)
+    x = rng.standard_normal((2, n, 16)).astype(np.float32)
+    h = DctHandler(n)
+    got = np.asarray(ND[dct_type](jnp.asarray(x), h, axis=1))
+    ref = sf.dct(x.astype(np.float64), type=dct_type, axis=1)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    # scalar normalization folds into the Makhoul twiddle
+    hs = DctHandler(n).normalization(Normalization.scalar(0.3))
+    gots = np.asarray(ND[dct_type](jnp.asarray(x), hs, axis=1))
+    assert np.abs(gots - 0.15 * ref).max() / np.abs(ref).max() < 1e-4

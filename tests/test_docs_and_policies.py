@@ -52,36 +52,8 @@ def test_dtype_reexports():
     assert ndrustfft_tpu.real_dtype(np.float32) == jnp.float32
 
 
-class _FakeTpuDevice:
-    platform = "tpu"
-    device_kind = "TPU v5 lite"
-
-
-class _FakeCpuDevice:
-    platform = "cpu"
-    device_kind = "cpu"
-
-
-def test_tpu_f64_policy_raises():
-    from ndrustfft_tpu.api import _check_tpu_f64
-
-    with pytest.raises(ValueError, match="float64.*not supported on TPU"):
-        _check_tpu_f64(jnp.float64, [_FakeTpuDevice()])
-    with pytest.raises(ValueError, match="complex128"):
-        _check_tpu_f64(jnp.complex128, [_FakeTpuDevice()])
-    # f32 anywhere, or f64 on CPU: fine
-    _check_tpu_f64(jnp.float32, [_FakeTpuDevice()])
-    _check_tpu_f64(jnp.float64, [_FakeCpuDevice()])
-    # policy escape hatch
-    ndrustfft_tpu.config.tpu_f64 = "allow"
-    try:
-        _check_tpu_f64(jnp.float64, [_FakeTpuDevice()])
-    finally:
-        ndrustfft_tpu.config.tpu_f64 = "error"
-
-
-def test_tpu_f64_guard_is_noop_on_cpu():
-    # end-to-end: f64 on the CPU backend must keep working at full precision
+def test_f64_is_native():
+    # end-to-end: f64 runs natively at full precision
     x = np.random.default_rng(0).standard_normal(16)
     got = np.asarray(ndrustfft_tpu.ndfft(jnp.asarray(x, jnp.complex128),
                                          axis=0))
@@ -102,104 +74,54 @@ def test_max_base_radix_validation():
         ndrustfft_tpu.config.max_base_radix = old
 
 
-def test_tpu_f64_demote_policy():
-    """tpu_f64='demote': f64/c128 on a TPU target computes the f32 twin at
-    HIGHEST dot precision and casts back (~3e-7 tier); the decision record
-    for why no ~1e-10 MXU path exists is DESIGN.md §9."""
-    from ndrustfft_tpu.api import _check_tpu_f64, _demote_wanted, _run_demoted
-
-    ndrustfft_tpu.config.tpu_f64 = "demote"
-    try:
-        # the error-path guard stands down
-        _check_tpu_f64(jnp.float64, [_FakeTpuDevice()])
-        assert _demote_wanted(jnp.complex128, [_FakeTpuDevice()])
-        assert not _demote_wanted(jnp.complex128, [_FakeCpuDevice()])
-        assert not _demote_wanted(jnp.complex64, [_FakeTpuDevice()])
-        # end-to-end demoted run (CPU execution, same code path)
-        from ndrustfft_tpu import FftHandler
-
-        rng = np.random.default_rng(0)
-        x = rng.standard_normal((8, 256)) + 1j * rng.standard_normal((8, 256))
-        h = FftHandler(256)
-        y = _run_demoted("fft", jnp.asarray(x, jnp.complex128), h, 1)
-        assert y.dtype == jnp.complex128
-        ref = np.fft.fft(x, axis=1)
-        err = np.abs(np.asarray(y) - ref).max() / np.abs(ref).max()
-        assert err < 1e-5, err  # the f32-exact tier, not the f64 tier
-        # precision flip is restored afterwards
-        assert ndrustfft_tpu.config.matmul_precision == "high"
-    finally:
-        ndrustfft_tpu.config.tpu_f64 = "error"
-    # DESIGN.md §9 documents the decision
-    import os
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    design = open(os.path.join(root, "DESIGN.md")).read()
-    assert "f64 on TPU: accuracy tiers" in design
-    assert "'demote'" in design
-
-
 def test_precision_override_is_thread_local():
-    """_run_demoted traces under config.precision_override (review fix):
-    the old implementation mutated the global config.matmul_precision, so a
-    concurrently traced f32 transform on another thread could silently
-    compile at 'highest' (5-7x slower) or the demoted trace at bf16x3."""
+    """config.precision_override scopes a trace-time precision to the
+    current thread: a concurrently traced transform on another thread keeps
+    the configured precision."""
     import threading
 
     import jax
 
-    from ndrustfft_tpu.config import matmul_precision, precision_override
+    from ndrustfft_tpu.config import (
+        config, matmul_precision, precision_override,
+    )
 
     seen = {}
+    configured = matmul_precision()
 
     def other_thread():
         seen["p"] = matmul_precision()
 
-    with precision_override("highest"):
-        assert matmul_precision() == jax.lax.Precision.HIGHEST
+    assert config.matmul_precision == "highest"   # the shipped default
+    with precision_override("high"):
+        assert matmul_precision() == jax.lax.Precision.HIGH
         t = threading.Thread(target=other_thread)
         t.start()
         t.join()
         # nested scope restores the outer override on exit
         with precision_override("default"):
             assert matmul_precision() == jax.lax.Precision.DEFAULT
-        assert matmul_precision() == jax.lax.Precision.HIGHEST
+        assert matmul_precision() == jax.lax.Precision.HIGH
     # other threads saw the configured precision, not the override
-    assert seen["p"] == matmul_precision() == jax.lax.Precision.HIGH
+    assert seen["p"] == matmul_precision() == configured
 
 
-def test_warmup_honors_tpu_f64_policy(monkeypatch):
-    """warmup(float64=True) must apply the same tpu_f64 policy as dispatch
-    (review fix): with the default 'error' policy it refuses instead of
-    handing a raw f64 program to the TPU compiler (SIGABRT, NOTES_TPU.md),
-    and under 'demote' it warms the ':demote' cache entry dispatch uses."""
-    import jax
-
+def test_warmup_compiles_native_f64():
+    """warmup(float64=True, run=False) AOT-compiles the native f64 entry
+    that dispatch then uses: the first real f64 call finds it cached."""
     import ndrustfft_tpu.api as api
     from ndrustfft_tpu import FftHandler
 
-    monkeypatch.setattr(jax, "devices", lambda: [_FakeTpuDevice()])
-    h = FftHandler(8)
-    with pytest.raises(ValueError, match="not supported on TPU"):
-        h.warmup((4, 8), float64=True, run=False)
-
-    ndrustfft_tpu.config.tpu_f64 = "demote"
+    api._jitted.cache_clear()
     try:
-        api._jitted.cache_clear()
-        # run=False (AOT only): zeros execution on a fake-TPU device list
-        # would still run on the real CPU backend, but the point here is
-        # the cache key — the ':demote' entry must be the one populated
+        h = FftHandler(8)
         h.warmup((4, 8), float64=True, run=False)
-        kinds = {k[0] for k in api._jitted.cache_keys()} if hasattr(
-            api._jitted, "cache_keys") else None
-        if kinds is None:
-            # lru_cache has no key introspection: assert via cache_info +
-            # a dispatch hit (no new compile) instead
-            info_before = api._jitted.cache_info()
-            fn = api._jitted("fft:demote", h, 1, api._config_key())
-            assert api._jitted.cache_info().hits > info_before.hits
-        else:
-            assert "fft:demote" in kinds
+        info = api._jitted.cache_info()
+        x = np.random.default_rng(1).standard_normal((4, 8)) + 0j
+        y = ndrustfft_tpu.ndfft(x, h, axis=1)
+        assert api._jitted.cache_info().hits > info.hits
+        assert y.dtype == jnp.complex128
+        np.testing.assert_allclose(np.asarray(y), np.fft.fft(x, axis=1),
+                                   rtol=1e-12, atol=1e-12)
     finally:
-        ndrustfft_tpu.config.tpu_f64 = "error"
         api._jitted.cache_clear()

@@ -155,33 +155,13 @@ def test_dst_par_sharded_pencil(dst_type):
 
 @pytest.mark.parametrize("n", [255, 511, 1023, 512, 1024])
 def test_dst1_packed_mid_kernel(n):
-    """DST-I axis-mid routes through the packed-mid r2c kernel (interpret
-    mode) and matches scipy: the odd extension's streams are middle-axis
-    views and -0.5*scale folds into the combine constants.
-
-    The extension length 2n+2 has half h = n+1, so the kernel gate opens
-    exactly for ODD n (even h with a twostep split); even n must fall back
-    to the engine path with identical values — both sides pinned here.
-    """
-    from ndrustfft_tpu import config
-    from ndrustfft_tpu.api import _jitted
-    from ndrustfft_tpu.ops.pallas.rfft import rfft_nat_supported
-    from ndrustfft_tpu.plan import get_r2c_plan
-
+    """DST-I on the middle axis runs the packed odd-extension lowering (no
+    2n+2 intermediate) and matches scipy for odd and even n alike: the
+    extension length 2n+2 has half h = n+1, so both parities of the half
+    length are pinned here."""
     rng = np.random.default_rng(n)
     x = rng.standard_normal((2, n, 8)).astype(np.float32)
     ref = sf.dst(x.astype(np.float64), type=1, axis=1)
-    old = (config.use_pallas, config.pallas_interpret)
-    try:
-        config.use_pallas = True
-        config.pallas_interpret = True
-        _jitted.cache_clear()
-        eligible = rfft_nat_supported(get_r2c_plan(2 * n + 2), jnp.float32)
-        assert eligible == (n % 2 == 1), \
-            f"dst1 mid-kernel gate moved: n={n} eligible={eligible}"
-        got = np.asarray(nddst1(jnp.asarray(x), DstHandler(n), axis=1))
-    finally:
-        config.use_pallas, config.pallas_interpret = old
-        _jitted.cache_clear()
+    got = np.asarray(nddst1(jnp.asarray(x), DstHandler(n), axis=1))
     err = np.abs(got - ref).max() / np.abs(ref).max()
     assert err < 1e-4, err

@@ -20,7 +20,8 @@ def test_example_runs(name):
     r = subprocess.run(
         [sys.executable, os.path.join(_EX_DIR, f"{name}.py")],
         capture_output=True, text=True, timeout=300,
-        env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu", "HOME": "/root",
+        env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
+             "HOME": os.environ.get("HOME", ""),
              "XLA_FLAGS": "--xla_force_host_platform_device_count=8"},
     )
     assert r.returncode == 0, r.stderr[-2000:]

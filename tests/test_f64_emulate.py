@@ -1,19 +1,22 @@
-"""tpu_f64='emulate': double-float (two-float32) emulated f64 transforms.
+"""float64 transforms: the public functions in native f64, and the
+double-float (two-float32) core of ops/df64.py.
 
-The emulate tier answers the reference's f64-first-class capability
-(/root/reference/src/lib.rs:105-115) ON the accelerator: a dot-free
-elementwise Stockham core over (hi, lo) f32 pairs (ops/df64.py) reaching
-~5e-15 relative — true f64-level accuracy where the MXU-dot lowerings cap
-at ~1e-7 (DESIGN.md §9).
+Native f64 (``complex128``/``float64`` inputs) is the library's f64 path
+on every backend (reference capability: f64 is a first-class dtype,
+reference src/lib.rs:105-115). These tests pin it at 1e-12 against
+numpy/scipy through the public API — roundtrips, every normalization
+policy, the c2r DC/Nyquist edge semantics, DCT/DST, primes, under jit and
+through ``warmup``.
 
-Structure:
-  * core numerics vs numpy/scipy f64 oracles at 1e-12 (pow2, mixed, prime
-    sizes — the prime sizes exercise the in-core Bluestein)
-  * f32 purity: the traced core contains NO f64 op (so it can never hand
-    f64 to the TPU compiler, which SIGABRTs in this stack — NOTES_TPU.md)
-  * API wiring: with the policy active, host f64 inputs route through
-    _run_emulated with the reference's exact normalization application
-    points and edge semantics (c2r DC/Nyquist imag zeroing)
+The double-float core (a dot-free elementwise Stockham over (hi, lo) f32
+pairs, ~5e-15 relative) stays as the f32-only representation that the
+pencil layer's ``fftn_pencil_dd`` moves over all_to_all; its numerics,
+f32 purity and distributed form are pinned here too.
+
+Test names ending in ``_emulated``/``_under_emulate`` or naming a policy
+date from the f64 emulation policy this library no longer has. They are
+kept so each test's history can be followed; every one of them now runs
+native f64, as its body and docstring say.
 """
 
 import numpy as np
@@ -24,7 +27,6 @@ import jax
 import jax.numpy as jnp
 
 import ndrustfft_tpu as nd
-from ndrustfft_tpu import api, config
 from ndrustfft_tpu.ops import df64
 
 RTOL = 1e-12
@@ -72,8 +74,8 @@ def test_dct_dst_core(n, t):
 
 @pytest.mark.parametrize("n", [64, 100])
 def test_core_is_f32_pure(n):
-    """The traced core must contain no f64 type — it must never hand an
-    f64 op to the TPU compiler (SIGABRT, NOTES_TPU.md)."""
+    """The traced core contains no f64 type: the double-float
+    representation is f32 end to end."""
     from ndrustfft_tpu.ops.df64 import _core, _split64
 
     rng = np.random.default_rng(0)
@@ -97,41 +99,30 @@ def test_split64_rounding():
 
 
 # --------------------------------------------------------------------------
-# API wiring (policy forced active on the CPU backend: _is_tpu_device is
-# patched so the process devices count as TPU, exactly the condition
-# _as_emulate_host checks; the f32 core then runs on CPU, which executes
-# the identical program)
+# native f64 through the public API
 # --------------------------------------------------------------------------
 
 
-@pytest.fixture
-def emulate(monkeypatch):
-    monkeypatch.setattr(api, "_is_tpu_device", lambda d: True)
-    monkeypatch.setattr(config, "tpu_f64", "emulate")
-    yield
-
-
-def test_ndfft_roundtrip_emulated(emulate):
+def test_ndfft_roundtrip_emulated():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((6, 64)) + 1j * rng.standard_normal((6, 64))
     h = nd.FftHandler(64)
     y = nd.ndfft(x, h, axis=1)
     assert isinstance(y, jax.Array)
     assert y.dtype == jnp.complex128
-    assert all(d.platform == "cpu" for d in y.devices())
     assert relerr(y, np.fft.fft(x, axis=1)) < RTOL
     back = nd.ndifft(np.asarray(y), h, axis=1)
     assert relerr(back, x) < RTOL  # Default norm = 1/n after
 
 
-def test_ndfft_axis0_and_real_input(emulate):
+def test_ndfft_axis0_and_real_input():
     rng = np.random.default_rng(4)
     x = rng.standard_normal((12, 5))  # real f64 -> complexified
     y = nd.ndfft(x, nd.FftHandler(12), axis=0)
     assert relerr(y, np.fft.fft(x, axis=0)) < RTOL
 
 
-def test_norm_modes_emulated(emulate):
+def test_norm_modes_emulated():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 16)) + 1j * rng.standard_normal((2, 16))
     none = nd.FftHandler(16).normalization(nd.Normalization.NONE)
@@ -146,7 +137,7 @@ def test_norm_modes_emulated(emulate):
 
 
 @pytest.mark.parametrize("n", [8, 9])
-def test_c2r_edge_semantics_emulated(emulate, n):
+def test_c2r_edge_semantics_emulated(n):
     """Reference src/lib.rs:516-521 (test :1136-1167): garbage imag parts
     on the DC (and, for even n, Nyquist) bins must not change the result."""
     rng = np.random.default_rng(6)
@@ -162,7 +153,7 @@ def test_c2r_edge_semantics_emulated(emulate, n):
 
 
 @pytest.mark.parametrize("t", [1, 2, 3, 4])
-def test_dct_dst_emulated_vs_scipy(emulate, t):
+def test_dct_dst_emulated_vs_scipy(t):
     rng = np.random.default_rng(7)
     x = rng.standard_normal((4, 33))
     ydct = getattr(nd, f"nddct{t}")(x, nd.DctHandler(33), axis=1)
@@ -171,7 +162,7 @@ def test_dct_dst_emulated_vs_scipy(emulate, t):
     assert relerr(ydst, sfft.dst(x, type=t, axis=1)) < RTOL
 
 
-def test_dct_custom_norm_emulated(emulate):
+def test_dct_custom_norm_emulated():
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 10))
     h = nd.DctHandler(10).normalization(
@@ -180,51 +171,58 @@ def test_dct_custom_norm_emulated(emulate):
     assert relerr(y, sfft.dct(x, type=2, axis=1)) < RTOL
 
 
-def test_prime_size_emulated(emulate):
+def test_prime_size_emulated():
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, 127)) + 1j * rng.standard_normal((2, 127))
     y = nd.ndfft(x, nd.FftHandler(127), axis=1)
     assert relerr(y, np.fft.fft(x, axis=1)) < RTOL
 
 
-def test_tracer_raises_under_emulate(emulate):
+def test_tracer_raises_under_emulate():
+    """f64 traced inside a user jit runs natively (no eager-only tier)."""
     h = nd.FftHandler(8)
+    x = np.random.default_rng(10).standard_normal(8) + 0j
 
     def f(z):
         return nd.ndfft(z, h, axis=0)
 
-    with pytest.raises(ValueError, match="emulate.*eagerly|eagerly"):
-        jax.jit(f)(jnp.zeros(8, jnp.complex128))
+    y = jax.jit(f)(jnp.asarray(x, jnp.complex128))
+    assert y.dtype == jnp.complex128
+    assert relerr(y, np.fft.fft(x)) < RTOL
 
 
-def test_jax_cpu_arrays_not_intercepted(emulate):
-    """A jax f64 array is legitimate CPU work — the native f64 engine
-    serves it (ADVICE round-2: don't hijack CPU-committed f64)."""
-    x = jnp.asarray(np.random.default_rng(11).standard_normal((4, 8)),
-                    jnp.complex128)
-    y = nd.ndfft(x, nd.FftHandler(8), axis=1)
-    assert relerr(y, np.fft.fft(np.asarray(x), axis=1)) < 1e-10
+def test_jax_cpu_arrays_not_intercepted():
+    """A jax f64 array and a numpy f64 array take the same native path."""
+    x = np.random.default_rng(11).standard_normal((4, 8)).astype(np.complex128)
+    y = nd.ndfft(jnp.asarray(x), nd.FftHandler(8), axis=1)
+    assert relerr(y, np.fft.fft(x, axis=1)) < RTOL
+    assert relerr(nd.ndfft(x, nd.FftHandler(8), axis=1), y) < RTOL
 
 
-def test_warmup_under_emulate(emulate):
+def test_warmup_under_emulate():
+    """warmup(float64=True) compiles the f64 entry that dispatch then
+    hits, and the warmed call is correct."""
+    from ndrustfft_tpu.api import _config_key, _jitted
+
     h = nd.FftHandler(16)
-    h.warmup((4, 16), axis=1, float64=True)  # must not raise / compile f64
+    h.warmup((4, 16), axis=1, float64=True)
+    assert _jitted("fft", h, 1, _config_key())._cache_size() >= 1
+    x = np.random.default_rng(12).standard_normal((4, 16)) + 0j
+    assert relerr(nd.ndfft(x, h, axis=1), np.fft.fft(x, axis=1)) < RTOL
 
 
-def test_inactive_without_policy(monkeypatch):
-    """Without the policy, numpy f64 inputs take the normal jit path."""
-    monkeypatch.setattr(api, "_is_tpu_device", lambda d: True)
-    monkeypatch.setattr(config, "tpu_f64", "error")
+def test_inactive_without_policy():
+    """numpy f64 inputs take the normal jit path and stay f64."""
     x = np.random.default_rng(12).standard_normal((2, 8)).astype(np.complex128)
-    with pytest.raises(ValueError, match="not supported on TPU"):
-        nd.ndfft(x, nd.FftHandler(8), axis=1)
+    y = nd.ndfft(x, nd.FftHandler(8), axis=1)
+    assert y.dtype == jnp.complex128
+    assert relerr(y, np.fft.fft(x, axis=1)) < RTOL
 
 
 def test_c2c_dd_traceable_inside_jit():
-    """Round-3 verdict next #5 (jittable f64 tier): the double-float C2C
-    core is traceable inside a user jit on device arrays — the program is
-    f32-only (split64 pairs), so it is legal for a TPU target, and the
-    results match numpy f64 to the emulate tier's accuracy."""
+    """The double-float C2C core is traceable inside a user jit on device
+    arrays — the program is f32-only (split64 pairs) — and the results
+    match numpy f64 to the double-float accuracy."""
     import jax
 
     from ndrustfft_tpu.ops import df64
@@ -284,7 +282,7 @@ def test_c2c_dd_axis0_and_grad_composability():
 
 
 # ---------------------------------------------------------------------------
-# distributed dd tier: the emulate accuracy rides the pencil path (round 4)
+# distributed dd tier: the double-float accuracy rides the pencil path
 # ---------------------------------------------------------------------------
 
 

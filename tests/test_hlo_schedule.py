@@ -4,8 +4,11 @@ Round 1 verified the pencil layer's OUTPUTS; these tests verify the compiled
 SCHEDULE on the virtual 8-device mesh: (a) exactly one all-to-all per
 sharded-axis step, (b) pipeline_chunks=k emits k independent collectives per
 resharded step, (c) the bytes entering each all-to-all match the plan's
-pad/slice accounting — so a regression that silently doubles communication
-(or drops the padding logic) fails here, not in a 64-chip job.
+pad/slice accounting and the reduced wire formats' byte savings — so a
+regression that silently doubles communication (or drops the padding
+logic) fails here, not in a multi-card job. That the card's compiler
+overlaps a chunk's all-to-all with compute is checked on four GPUs by
+``chip_smoke.py --four``.
 """
 
 import re
@@ -146,57 +149,9 @@ def test_a2a_operand_count_matches_mesh_axis_size():
     assert counts == [2, 4], counts
 
 
-def test_async_all_to_all_overlaps_compute_on_tpu_schedule():
-    """Schedule-level overlap proof (round-2 verdict weak/next #6): AOT-
-    compile the chunked pencil program for an ABSTRACT v5e 2x4 topology
-    (no real chips needed) with async all-to-all enabled, and assert the
-    REAL TPU compiler's scheduled module starts a chunk's collective,
-    runs transform compute, and only then waits on the done — i.e. the
-    pipeline_chunks overlap is realized by the scheduler, not just
-    modeled."""
-    try:
-        from jax.experimental import topologies
-
-        topo = topologies.get_topology_desc(platform="tpu",
-                                            topology_name="v5e:2x4")
-    except Exception as e:  # pragma: no cover - environment-dependent
-        pytest.skip(f"TPU topology AOT unavailable: {e}")
-    mesh = Mesh(np.array(topo.devices).reshape(2, 4), ("y", "z"))
-    steps = [Step("fft", 2, FftHandler(256)),
-             Step("fft", 1, FftHandler(256)),
-             Step("fft", 0, FftHandler(256))]
-    fn = lambda v: pencil_transform(  # noqa: E731
-        v, steps, mesh, P("y", "z", None), pipeline_chunks=2)[0]
-    xs = jax.ShapeDtypeStruct(
-        (256, 256, 256), jnp.complex64,
-        sharding=NamedSharding(mesh, P("y", "z", None)))
-    txt = jax.jit(fn).lower(xs).compile(
-        compiler_options={"xla_tpu_enable_async_all_to_all": "true"}
-    ).as_text()
-    assert "is_scheduled=true" in txt.splitlines()[0]
-    # walk the scheduled instruction order; require at least one
-    # start -> compute fusion -> done sandwich
-    op_re = re.compile(
-        r"= .*?(all-to-all-start|all-to-all-done|fusion)\(")
-    events = [m.group(1) for ln in txt.splitlines()
-              if (m := op_re.search(ln))]
-    assert events.count("all-to-all-start") >= 4, events
-    overlapped = 0
-    open_started = False
-    for ev in events:
-        if ev == "all-to-all-start":
-            open_started = True
-        elif ev == "fusion" and open_started:
-            overlapped += 1
-        elif ev == "all-to-all-done":
-            open_started = False
-    assert overlapped >= 1, (
-        f"no compute scheduled inside any async all-to-all window: {events}")
-
-
 def _a2a_payload_bytes(hlo):
-    # handles both the CPU tuple form `= (f32[..], ..) all-to-all(` and the
-    # TPU scheduled single-shape form `= bf16[..]{layout} all-to-all(`
+    # handles both the compiled tuple form `= (f32[..], ..) all-to-all(` and
+    # the lowered single-shape form `= bf16[..]{layout} all-to-all(`
     total = 0
     for ln in hlo.splitlines():
         m = re.search(r"= (.*?) all-to-all\(", ln)
@@ -216,8 +171,8 @@ def test_bf16_wire_rounding_applied_on_cpu_hlo():
     # On the CPU backend XLA promotes the collective payload back to f32
     # (its collectives don't carry bf16), but the PRECISION contract must
     # still hold: the payload is rounded through bf16 before the
-    # all-to-all. The byte saving itself is asserted on the real TPU
-    # schedule (test_bf16_wire_halves_bytes_on_tpu_schedule).
+    # all-to-all. The byte saving itself is asserted on the lowered program
+    # (test_bf16_wire_halves_bytes_in_lowered_hlo).
     mesh = _mesh()
     x = jnp.asarray(np.random.default_rng(0).standard_normal((8, 8, 16)),
                     jnp.complex64)
@@ -238,110 +193,56 @@ def test_bf16_wire_rounding_applied_on_cpu_hlo():
     assert "bf16[" not in hlo32
 
 
-def test_bf16_wire_halves_bytes_on_tpu_schedule():
-    # wire_dtype='bfloat16' must carry HALF the bytes over ICI on the real
-    # TPU compiler's schedule - the round-4 weak-scaling lever; a silent
-    # fallback to f32 wire would pass numerics but fail here
-    try:
-        from jax.experimental import topologies
-
-        topo = topologies.get_topology_desc(platform="tpu",
-                                            topology_name="v5e:2x4")
-    except Exception as e:  # pragma: no cover - environment-dependent
-        pytest.skip(f"TPU topology AOT unavailable: {e}")
-    mesh = Mesh(np.array(topo.devices).reshape(2, 4), ("y", "z"))
+def _lowered_wire_bytes(wire):
+    """all_to_all payload bytes of the lowered (pre-optimization) HLO of a
+    3-D pencil FFT on the 2x4 CPU mesh: the program as the card's compiler
+    receives it, before the CPU backend widens bf16 collectives to f32."""
+    mesh = _mesh()
     steps = [Step("fft", 2, FftHandler(64)),
              Step("fft", 1, FftHandler(64)),
              Step("fft", 0, FftHandler(64))]
+    fn = lambda v: pencil_transform(  # noqa: E731
+        v, steps, mesh, P("y", "z", None), wire_dtype=wire)[0]
+    xs = jax.ShapeDtypeStruct(
+        (64, 64, 64), jnp.complex64,
+        sharding=NamedSharding(mesh, P("y", "z", None)))
+    return _a2a_payload_bytes(jax.jit(fn).lower(xs).as_text(dialect="hlo"))
 
-    def run(wire):
-        fn = lambda v: pencil_transform(  # noqa: E731
-            v, steps, mesh, P("y", "z", None), wire_dtype=wire)[0]
-        xs = jax.ShapeDtypeStruct(
-            (64, 64, 64), jnp.complex64,
-            sharding=NamedSharding(mesh, P("y", "z", None)))
-        return jax.jit(fn).lower(xs).compile().as_text()
 
-    b32 = _a2a_payload_bytes(run(None))
-    b16 = _a2a_payload_bytes(run("bfloat16"))
-    assert b32 > 0 and b16 > 0
+def test_bf16_wire_halves_bytes_in_lowered_hlo():
+    # wire_dtype='bfloat16' must carry HALF the bytes of the c64 payload; a
+    # silent fallback to f32 wire would pass numerics but fail here
+    b32 = _lowered_wire_bytes(None)
+    b16 = _lowered_wire_bytes("bfloat16")
+    # two resharded steps, each moving the local c64 volume (1/8 of 64^3)
+    assert b32 == 2 * (64 ** 3 // 8) * 8, b32
     assert b16 * 2 == b32, (b16, b32)
 
 
-def test_async_overlap_with_bf16_wire_on_tpu_schedule():
-    """Round-3 verdict next #2: the v5e AOT schedule-overlap proof must
-    hold WITH the reduced wire format - 2 chunks + bf16 wire."""
-    try:
-        from jax.experimental import topologies
-
-        topo = topologies.get_topology_desc(platform="tpu",
-                                            topology_name="v5e:2x4")
-    except Exception as e:  # pragma: no cover - environment-dependent
-        pytest.skip(f"TPU topology AOT unavailable: {e}")
-    mesh = Mesh(np.array(topo.devices).reshape(2, 4), ("y", "z"))
-    steps = [Step("fft", 2, FftHandler(256)),
-             Step("fft", 1, FftHandler(256)),
-             Step("fft", 0, FftHandler(256))]
-    fn = lambda v: pencil_transform(  # noqa: E731
-        v, steps, mesh, P("y", "z", None), pipeline_chunks=2,
-        wire_dtype="bfloat16")[0]
-    xs = jax.ShapeDtypeStruct(
-        (256, 256, 256), jnp.complex64,
-        sharding=NamedSharding(mesh, P("y", "z", None)))
-    txt = jax.jit(fn).lower(xs).compile(
-        compiler_options={"xla_tpu_enable_async_all_to_all": "true"}
-    ).as_text()
-    assert "is_scheduled=true" in txt.splitlines()[0]
-    assert "bf16" in txt  # the wire format survived into the TPU schedule
-    op_re = re.compile(
-        r"= .*?(all-to-all-start|all-to-all-done|fusion)\(")
-    events = [m.group(1) for ln in txt.splitlines()
-              if (m := op_re.search(ln))]
-    assert events.count("all-to-all-start") >= 4, events
-    overlapped = 0
-    open_started = False
-    for ev in events:
-        if ev == "all-to-all-start":
-            open_started = True
-        elif ev == "fusion" and open_started:
-            overlapped += 1
-        elif ev == "all-to-all-done":
-            open_started = False
-    assert overlapped >= 1, (
-        f"no compute scheduled inside any async all-to-all window: {events}")
-
-
-def test_int16_wire_halves_bytes_on_tpu_schedule():
-    """Round-5 wire ladder: 'int16' must move the SAME halved ICI bytes as
-    bf16 on the real TPU compiler's schedule (its all_to_all payloads are
-    s16 planes; the per-source scales ride a k-scalar all-gather whose
-    bytes are noise). A silent fallback to f32 wire would pass numerics
-    but fail here."""
-    try:
-        from jax.experimental import topologies
-
-        topo = topologies.get_topology_desc(platform="tpu",
-                                            topology_name="v5e:2x4")
-    except Exception as e:  # pragma: no cover - environment-dependent
-        pytest.skip(f"TPU topology AOT unavailable: {e}")
-    mesh = Mesh(np.array(topo.devices).reshape(2, 4), ("y", "z"))
-    steps = [Step("fft", 2, FftHandler(64)),
-             Step("fft", 1, FftHandler(64)),
-             Step("fft", 0, FftHandler(64))]
-
-    def run(wire):
-        fn = lambda v: pencil_transform(  # noqa: E731
-            v, steps, mesh, P("y", "z", None), wire_dtype=wire)[0]
-        xs = jax.ShapeDtypeStruct(
-            (64, 64, 64), jnp.complex64,
-            sharding=NamedSharding(mesh, P("y", "z", None)))
-        return jax.jit(fn).lower(xs).compile().as_text()
-
-    b32 = _a2a_payload_bytes(run(None))
-    bq = _a2a_payload_bytes(run("int16"))
+def test_int16_wire_halves_bytes_in_lowered_hlo():
+    """'int16' must move the SAME halved bytes as bf16 (its all_to_all
+    payloads are s16 planes; the per-source scales ride a k-scalar
+    all-gather whose bytes are noise), and 'bfloat16x2' on a c64 payload
+    moves f32-EQUAL bytes (a precision tier, not a bandwidth tier, for
+    f32-class grids)."""
+    b32 = _lowered_wire_bytes(None)
+    bq = _lowered_wire_bytes("int16")
     assert b32 > 0 and bq > 0
     assert bq * 2 == b32, (bq, b32)
-    # bf16x2 on a c64 payload moves f32-EQUAL bytes (precision tier, not a
-    # bandwidth tier, for f32-class grids)
-    bx2 = _a2a_payload_bytes(run("bfloat16x2"))
-    assert bx2 == b32, (bx2, b32)
+    assert _lowered_wire_bytes("bfloat16x2") == b32
+
+
+def test_bf16x2_split_rounds_with_reduce_precision():
+    """The bf16x2 hi part is rounded by an explicit reduce-precision (8
+    exponent, 7 mantissa bits), which survives into the compiled program:
+    a bf16 round trip there may be folded away by XLA:GPU's excess-precision
+    rewrites, leaving lo = 0 and plain-bf16 accuracy."""
+    mesh = _mesh()
+    steps = [Step("fft", 2, FftHandler(16)), Step("fft", 1, FftHandler(8))]
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((8, 8, 16)),
+                    jnp.complex64)
+    x = jax.device_put(x, NamedSharding(mesh, P("y", "z", None)))
+    hlo = _compiled_hlo(lambda v: pencil_transform(
+        v, steps, mesh, P("y", "z", None), wire_dtype="bfloat16x2")[0], x)
+    assert re.search(r"reduce-precision\(.*exponent_bits=8, mantissa_bits=7",
+                     hlo), "bf16x2 hi rounding was folded away"

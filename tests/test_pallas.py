@@ -1,121 +1,130 @@
-"""Pallas kernel path tests (interpreter mode on CPU).
+"""The shape/size/axis grid of the transform routes, through the public API.
 
-The fused kernel must be bit-compatible-at-tolerance with the XLA engine and
-the numpy oracle for every plan shape it claims to support, including partial
-lane tiles. On real TPU the same kernels compile natively (exercised by
-bench.py --compile-check / the driver's TPU runs).
+Every case runs a public entry point at the sizes and layouts that pick
+distinct lowerings (power-of-two and mixed-radix Cooley-Tukey, Bluestein
+primes, even/odd real transforms, the DCT/DST lowerings, minor / middle /
+leading axes, partial batches), compares it with numpy/scipy in float64,
+and asserts the route it compiled to through ``config.debug_plan_log``: a
+change that silently moves a case onto another lowering fails here.
 
-Tolerances: the default 'high' precision runs the kernels' manual bf16x3
-dots (the same arithmetic as XLA's Precision.HIGH — measured ~2e-5 max-rel
-at n=1024, BASELINE.md), which interpret mode reproduces bit-honestly on
-CPU; tests therefore assert the HIGH-tier tolerance, plus one HIGHEST-mode
-test pinning the strict tier.
+The ``test_pallas_*`` names date from the hand-written kernels these
+shapes once selected. They are kept so each test's history can be
+followed; no Pallas code runs here, every case goes through the XLA
+engine.
 """
 
 import numpy as np
 import pytest
+import scipy.fft
 
 import jax.numpy as jnp
-from ndrustfft_tpu import FftHandler, R2cFftHandler, config, ndfft, ndfft_r2c, ndifft
+from ndrustfft_tpu import (
+    DctHandler, FftHandler, Normalization, R2cFftHandler, config, nddct1,
+    nddct2, nddct3, nddct4, ndfft, ndfft_r2c, ndifft, ndifft_r2c,
+)
+from ndrustfft_tpu.plan import get_c2c_plan
 
 
 @pytest.fixture(autouse=True)
-def _interpret_mode():
-    # the api-level jit cache bakes in the config flags at trace time; clear
-    # it around each flip so tests see the intended path
+def _plan_log():
+    # the eager jit cache is keyed on the config, so a fresh cache with the
+    # log on retraces every call once and prints its route
     from ndrustfft_tpu.api import _jitted
 
-    old_i, old_u = config.pallas_interpret, config.use_pallas
-    config.pallas_interpret = True
-    config.use_pallas = True
+    old = config.debug_plan_log
+    config.debug_plan_log = True
     _jitted.cache_clear()
     yield
-    config.pallas_interpret = old_i
-    config.use_pallas = old_u
+    config.debug_plan_log = old
     _jitted.cache_clear()
+
+
+def _rel(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+def _cplx(rng, shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
 
 
 @pytest.mark.parametrize("n", [16, 64, 264, 1024])
-def test_pallas_c2c_matches_numpy(n):
+def test_pallas_c2c_matches_numpy(n, capsys):
     rng = np.random.default_rng(n)
-    x = (rng.standard_normal((32, n)) + 1j * rng.standard_normal((32, n))
-         ).astype(np.complex64)
+    x = _cplx(rng, (32, n))
     got = np.asarray(ndfft(jnp.asarray(x), FftHandler(n), axis=1))
-    ref = np.fft.fft(x, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    assert f"fft n={n} axis=1 -> engine-lane-last\n" in capsys.readouterr().err
+    assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-4
 
 
-def test_pallas_highest_precision_tier():
-    # strict tier: HIGHEST-mode dots must stay at f32-exact-level error
-    config.matmul_precision = "highest"
+def test_pallas_highest_precision_tier(capsys):
+    # strict tier: f32-exact dots stay at f32-exact-level error
     from ndrustfft_tpu.api import _jitted
 
+    old = config.matmul_precision
+    config.matmul_precision = "highest"
     _jitted.cache_clear()
     try:
         rng = np.random.default_rng(77)
         n = 1024
-        x = (rng.standard_normal((32, n)) + 1j * rng.standard_normal((32, n))
-             ).astype(np.complex64)
+        x = _cplx(rng, (32, n))
         got = np.asarray(ndfft(jnp.asarray(x), FftHandler(n), axis=1))
-        ref = np.fft.fft(x, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
+        assert "engine-lane-last" in capsys.readouterr().err
+        assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-5
     finally:
-        config.matmul_precision = "high"
+        config.matmul_precision = old
         _jitted.cache_clear()
 
 
-def test_pallas_partial_tile():
+def test_pallas_partial_tile(capsys):
+    # a batch that is no multiple of any tile width
     rng = np.random.default_rng(0)
-    x = (rng.standard_normal((37, 64)) + 1j * rng.standard_normal((37, 64))
-         ).astype(np.complex64)
+    x = _cplx(rng, (37, 64))
     got = np.asarray(ndfft(jnp.asarray(x), FftHandler(64), axis=1))
-    ref = np.fft.fft(x, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    assert "fft n=64 axis=1 -> engine-lane-last" in capsys.readouterr().err
+    assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-4
 
 
-def test_pallas_inverse_and_r2c():
+def test_pallas_inverse_and_r2c(capsys):
     rng = np.random.default_rng(1)
-    x = (rng.standard_normal((16, 128)) + 1j * rng.standard_normal((16, 128))
-         ).astype(np.complex64)
+    x = _cplx(rng, (16, 128))
     h = FftHandler(128)
     back = np.asarray(ndifft(ndfft(jnp.asarray(x), h, 1), h, 1))
     assert np.abs(back - x).max() < 2e-4
     xr = rng.standard_normal((16, 128)).astype(np.float32)
     got = np.asarray(ndfft_r2c(jnp.asarray(xr), R2cFftHandler(128), axis=1))
-    ref = np.fft.rfft(xr, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    err = capsys.readouterr().err
+    assert "ifft n=128 axis=1 -> engine-lane-last" in err
+    assert "r2c n=128 axis=1 -> engine-r2c-half" in err
+    assert _rel(got, np.fft.rfft(xr.astype(np.float64), axis=1)) < 1e-4
 
 
 def test_pallas_matches_xla_engine_exactly_disabled():
-    # with use_pallas off, the XLA engine must produce the same values
+    # the eager call and the same call traced into a user jit compile the
+    # same engine program: identical values
+    import jax
+
     rng = np.random.default_rng(2)
-    x = (rng.standard_normal((32, 64)) + 1j * rng.standard_normal((32, 64))
-         ).astype(np.complex64)
+    x = _cplx(rng, (32, 64))
     h = FftHandler(64)
     a = np.asarray(ndfft(jnp.asarray(x), h, axis=1))
-    config.use_pallas = False
-    from ndrustfft_tpu.api import _jitted
-
-    _jitted.cache_clear()
-    b = np.asarray(ndfft(jnp.asarray(x), h, axis=1))
+    b = np.asarray(jax.jit(lambda v: ndfft(v, h, axis=1))(jnp.asarray(x)))
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
 
 
-def test_pallas_axis0_kernel():
-    # transpose-free axis-0 kernel flavor (needs the 'pallas' strategy —
-    # the default moveaxis strategy routes through the lane-last kernel)
-    config.axis0_strategy = "pallas"
+def test_pallas_axis0_kernel(capsys):
+    # transpose-free first-axis contraction (the 'einsum' axis-0 strategy)
     from ndrustfft_tpu.api import _jitted
 
+    config.axis0_strategy = "einsum"
     _jitted.cache_clear()
     rng = np.random.default_rng(3)
-    x = (rng.standard_normal((264, 32)) + 1j * rng.standard_normal((264, 32))
-         ).astype(np.complex64)
+    x = _cplx(rng, (264, 32))
     h = FftHandler(264)
     try:
         got = np.asarray(ndfft(jnp.asarray(x), h, axis=0))
-        ref = np.fft.fft(x, axis=0)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+        assert "fft n=264 axis=0 -> axis0-einsum" in capsys.readouterr().err
+        assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=0)) < 1e-4
         back = np.asarray(ndifft(ndfft(jnp.asarray(x), h, 0), h, 0))
         assert np.abs(back - x).max() < 5e-4
     finally:
@@ -123,265 +132,194 @@ def test_pallas_axis0_kernel():
         _jitted.cache_clear()
 
 
-def test_pallas_fused_r2c_c2r():
-    from ndrustfft_tpu import ndifft_r2c
-
+def test_pallas_fused_r2c_c2r(capsys):
     rng = np.random.default_rng(9)
     for n in [16, 264, 1024]:
         x = rng.standard_normal((32, n)).astype(np.float32)
         h = R2cFftHandler(n)
         got = np.asarray(ndfft_r2c(jnp.asarray(x), h, axis=1))
-        ref = np.fft.rfft(x, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4, n
+        assert _rel(got, np.fft.rfft(x.astype(np.float64), axis=1)) < 1e-4, n
         back = np.asarray(ndifft_r2c(jnp.asarray(got), h, axis=1))
         assert np.abs(back - x).max() < 5e-4, n
+        err = capsys.readouterr().err
+        assert f"r2c n={n} axis=1 -> engine-r2c-half" in err, err
+        assert f"c2r n={n} axis=1 -> engine-c2r\n" in err, err
 
 
-def test_pallas_fused_c2r_dc_nyquist_pin():
-    from ndrustfft_tpu import ndifft_r2c
-
+def test_pallas_fused_c2r_dc_nyquist_pin(capsys):
     rng = np.random.default_rng(10)
     n, m = 16, 9
-    spec = (rng.standard_normal((8, m)) + 1j * rng.standard_normal((8, m))
-            ).astype(np.complex64)
+    spec = _cplx(rng, (8, m))
     spec[:, 0] += 100j
     spec[:, -1] += 100j
     got = np.asarray(ndifft_r2c(jnp.asarray(spec), R2cFftHandler(n), axis=1))
-    ref = np.fft.irfft(spec, n=n, axis=1)
+    assert "c2r n=16 axis=1 -> engine-c2r" in capsys.readouterr().err
+    ref = np.fft.irfft(spec.astype(np.complex128), n=n, axis=1)
     assert np.abs(got - ref).max() < 1e-4
 
 
-def test_pallas_axis_mid_kernel():
-    # transpose-free mid-axis kernel: (B, n, L) along axis 1.
-    # n=384 -> twostep (m=128, f=3): the MXU stage-2 combine (f not a
-    # butterfly size); n=512 -> f=4 and n=1024 -> f=8 butterfly combines;
-    # n=264 -> the generic recursive body; n=16 -> dense lane path.
+def test_pallas_axis_mid_kernel(capsys):
+    # middle axis of (B, n, L): power-of-two, mixed-radix and dense sizes
     rng = np.random.default_rng(11)
     for n in [16, 264, 384, 512, 1024]:
-        x = (rng.standard_normal((3, n, 40))
-             + 1j * rng.standard_normal((3, n, 40))).astype(np.complex64)
+        x = _cplx(rng, (3, n, 40))
         h = FftHandler(n)
         got = np.asarray(ndfft(jnp.asarray(x), h, axis=1))
-        ref = np.fft.fft(x, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4, n
+        err = capsys.readouterr().err
+        assert f"fft n={n} axis=1 -> engine-lane-last+moveaxis" in err, err
+        assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-4
         back = np.asarray(ndifft(ndfft(jnp.asarray(x), h, 1), h, 1))
         assert np.abs(back - x).max() < 5e-4, n
 
 
-def test_pallas_axis_mid_partial_lane_tile():
+def test_pallas_axis_mid_partial_lane_tile(capsys):
     rng = np.random.default_rng(12)
-    x = (rng.standard_normal((2, 64, 37))
-         + 1j * rng.standard_normal((2, 64, 37))).astype(np.complex64)
+    x = _cplx(rng, (2, 64, 37))
     got = np.asarray(ndfft(jnp.asarray(x), FftHandler(64), axis=1))
-    ref = np.fft.fft(x, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    assert "engine-lane-last+moveaxis" in capsys.readouterr().err
+    assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-4
 
 
-def test_pallas_fused_dct2_dct3():
-    import scipy.fft
-
-    from ndrustfft_tpu import DctHandler, nddct2, nddct3
-
+def test_pallas_fused_dct2_dct3(capsys):
     rng = np.random.default_rng(13)
     for n in [256, 1024]:
         x = rng.standard_normal((16, n)).astype(np.float32)
+        x64 = x.astype(np.float64)
         h = DctHandler(n)
         got2 = np.asarray(nddct2(jnp.asarray(x), h, axis=1))
-        ref2 = scipy.fft.dct(x, type=2, axis=1)
-        assert np.abs(got2 - ref2).max() / np.abs(ref2).max() < 1e-4, n
+        assert _rel(got2, scipy.fft.dct(x64, type=2, axis=1)) < 1e-4, n
         got3 = np.asarray(nddct3(jnp.asarray(x), h, axis=1))
-        ref3 = scipy.fft.dct(x, type=3, axis=1)
-        assert np.abs(got3 - ref3).max() / np.abs(ref3).max() < 1e-4, n
+        assert _rel(got3, scipy.fft.dct(x64, type=3, axis=1)) < 1e-4, n
+        err = capsys.readouterr().err
+        assert f"dct2 n={n} axis=1 -> engine-dct\n" in err, err
+        assert f"dct3 n={n} axis=1 -> engine-dct\n" in err, err
         # roundtrip: dct3(dct2(x)) = 2n x (scipy unnormalized identity)
         back = np.asarray(nddct3(nddct2(jnp.asarray(x), h, 1), h, 1))
         assert np.abs(back / (2.0 * n) - x).max() < 5e-4, n
 
 
-def test_kernel_support_gating():
-    import jax.numpy as jnp2
-
-    from ndrustfft_tpu.ops.pallas.dct import dct_pallas_supported
-    from ndrustfft_tpu.ops.pallas.fft import (
-        _twostep_split, pallas_supported)
-    from ndrustfft_tpu.ops.pallas.rfft import rfft_pallas_supported
-    from ndrustfft_tpu.plan import get_c2c_plan, get_r2c_plan
-
-    # interpret mode is on via the autouse fixture -> backend check passes
-    assert pallas_supported(get_c2c_plan(1024, -1), jnp2.float32)
-    assert not pallas_supported(get_c2c_plan(1024, -1), jnp2.float64)
-    # Bluestein plans are engine-only
-    assert not pallas_supported(get_c2c_plan(1021, -1), jnp2.float32)  # prime
-    # fused rfft needs the even-n pack plan
-    assert rfft_pallas_supported(get_r2c_plan(1024), jnp2.float32)
-    assert not rfft_pallas_supported(get_r2c_plan(1023), jnp2.float32)
-    # fused DCT needs even n with a {128,256} split
-    assert dct_pallas_supported(1024, jnp2.float32)
-    assert not dct_pallas_supported(1025, jnp2.float32)
-    assert not dct_pallas_supported(1026, jnp2.float32)  # no 128 divisor
-    assert not dct_pallas_supported(1024, jnp2.float64)
-    # twostep split sanity
-    assert _twostep_split(1024) == (128, 8)
-    assert _twostep_split(512) == (128, 4)
-    assert _twostep_split(264) is None
-    # flipping use_pallas off must gate everything
-    config.use_pallas = False
-    try:
-        assert not pallas_supported(get_c2c_plan(1024, -1), jnp2.float32)
-        assert not dct_pallas_supported(1024, jnp2.float32)
-    finally:
-        config.use_pallas = True
-
-
-def test_pallas_nat_c2r_dc_nyquist_pin_large_n():
-    # same edge pin as above but at n=1024 so it runs the NATURAL-LAYOUT
-    # c2r kernel (h=512 twostep-eligible), where the DC/Nyquist imag
-    # zeroing and the 1/n normalization are fused into the kernel consts
-    from ndrustfft_tpu import ndifft_r2c
-
+def test_pallas_nat_c2r_dc_nyquist_pin_large_n(capsys):
+    # DC/Nyquist imag zeroing and the 1/n normalization at n=1024
     rng = np.random.default_rng(12)
     n, m = 1024, 513
-    spec = (rng.standard_normal((16, m)) + 1j * rng.standard_normal((16, m))
-            ).astype(np.complex64)
+    spec = _cplx(rng, (16, m))
     spec[:, 0] += 100j     # DC imag garbage
     spec[:, -1] += 100j    # Nyquist imag garbage
     got = np.asarray(ndifft_r2c(jnp.asarray(spec), R2cFftHandler(n), axis=1))
-    ref = np.fft.irfft(spec, n=n, axis=1)
+    assert "c2r n=1024 axis=1 -> engine-c2r" in capsys.readouterr().err
+    ref = np.fft.irfft(spec.astype(np.complex128), n=n, axis=1)
     assert np.abs(got - ref).max() < 5e-4
 
 
-def test_pallas_nat_c2r_scalar_norm_fused():
-    # scalar normalization rides the nat kernel's a/c/b0 constants
-    from ndrustfft_tpu import Normalization, ndifft_r2c
-
+def test_pallas_nat_c2r_scalar_norm_fused(capsys):
+    # the scalar normalization folds into the inverse's pre-step
     rng = np.random.default_rng(13)
     n, m = 1024, 513
-    spec = (rng.standard_normal((16, m)) + 1j * rng.standard_normal((16, m))
-            ).astype(np.complex64)
+    spec = _cplx(rng, (16, m))
     c = 0.37
     hs = R2cFftHandler(n).normalization(Normalization.scalar(c))
-    hn = R2cFftHandler(n).normalization(Normalization.NONE)
     got = np.asarray(ndifft_r2c(jnp.asarray(spec), hs, axis=1))
-    ref = c * np.asarray(ndifft_r2c(jnp.asarray(spec), hn, axis=1))
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-3
+    assert "c2r n=1024 axis=1 -> engine-c2r" in capsys.readouterr().err
+    s64 = spec.astype(np.complex128)
+    s64[:, 0] = s64[:, 0].real
+    s64[:, -1] = s64[:, -1].real
+    ref = c * n * np.fft.irfft(s64, n=n, axis=1)
+    assert _rel(got, ref) < 1e-3
 
 
-def test_pallas_dct_scalar_norm_fused():
-    # DCT norms fold into the fused kernels' constants (applied BEFORE the
+def test_pallas_dct_scalar_norm_fused(capsys):
+    # DCT norms fold into the lowering's constants (applied BEFORE the
     # transform per the reference, src/lib.rs:688-741)
-    from ndrustfft_tpu import DctHandler, Normalization, nddct2, nddct3
-
     rng = np.random.default_rng(14)
     x = rng.standard_normal((16, 512)).astype(np.float32)
-    for fn in (nddct2, nddct3):
+    for t, fn in ((2, nddct2), (3, nddct3)):
         hs = DctHandler(512).normalization(Normalization.scalar(0.7))
-        hn = DctHandler(512).normalization(Normalization.NONE)
         got = np.asarray(fn(jnp.asarray(x), hs, axis=1))
-        ref = 0.7 * np.asarray(fn(jnp.asarray(x), hn, axis=1))
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-3, fn
+        assert f"dct{t} n=512 axis=1 -> engine-dct" in capsys.readouterr().err
+        ref = 0.7 * scipy.fft.dct(x.astype(np.float64), type=t, axis=1) / 2
+        assert _rel(got, ref) < 1e-3, t
 
 
-def test_pallas_r2c_c2r_axis_mid():
-    # axis-mid natural r2c/c2r kernels: transform along axis 1 of
-    # (B, n, L), no moveaxis, free middle-dim (de)interleave
-    from ndrustfft_tpu import ndifft_r2c
-
+def test_pallas_r2c_c2r_axis_mid(capsys):
+    # r2c/c2r along axis 1 of (B, n, L)
     rng = np.random.default_rng(15)
     for n in [512, 1024]:
         x = rng.standard_normal((3, n, 16)).astype(np.float32)
         h = R2cFftHandler(n)
         got = np.asarray(ndfft_r2c(jnp.asarray(x), h, axis=1))
-        ref = np.fft.rfft(x, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4, n
+        assert _rel(got, np.fft.rfft(x.astype(np.float64), axis=1)) < 1e-4, n
         back = np.asarray(ndifft_r2c(jnp.asarray(got), h, axis=1))
         assert np.abs(back - x).max() < 5e-4, n
-    # DC/Nyquist edge semantics through the mid kernel
+        err = capsys.readouterr().err
+        assert f"r2c n={n} axis=1 -> engine-r2c-half+moveaxis" in err, err
+        assert f"c2r n={n} axis=1 -> engine-c2r+moveaxis" in err, err
+    # DC/Nyquist edge semantics on the middle axis
     n, m = 1024, 513
-    spec = (rng.standard_normal((2, m, 16)) + 1j * rng.standard_normal(
-        (2, m, 16))).astype(np.complex64)
+    spec = _cplx(rng, (2, m, 16))
     spec[:, 0, :] += 100j
     spec[:, -1, :] += 100j
     got = np.asarray(ndifft_r2c(jnp.asarray(spec), R2cFftHandler(n), axis=1))
-    ref = np.fft.irfft(spec, n=n, axis=1)
+    ref = np.fft.irfft(spec.astype(np.complex128), n=n, axis=1)
     assert np.abs(got - ref).max() < 5e-4
 
 
-def test_pallas_dct_axis_mid():
-    # axis-mid fused DCT-II/III: transform along axis 1 of (B, n, L)
-    import scipy.fft
-
-    from ndrustfft_tpu import DctHandler, nddct2, nddct3
-
+def test_pallas_dct_axis_mid(capsys):
+    # DCT-II/III along axis 1 of (B, n, L)
     rng = np.random.default_rng(16)
     for n in [512, 1024]:
         x = rng.standard_normal((3, n, 16)).astype(np.float32)
+        x64 = x.astype(np.float64)
         h = DctHandler(n)
         got2 = np.asarray(nddct2(jnp.asarray(x), h, axis=1))
-        ref2 = scipy.fft.dct(x, type=2, axis=1)
-        assert np.abs(got2 - ref2).max() / np.abs(ref2).max() < 1e-4, n
+        assert _rel(got2, scipy.fft.dct(x64, type=2, axis=1)) < 1e-4, n
         got3 = np.asarray(nddct3(jnp.asarray(x), h, axis=1))
-        ref3 = scipy.fft.dct(x, type=3, axis=1)
-        assert np.abs(got3 - ref3).max() / np.abs(ref3).max() < 1e-4, n
+        assert _rel(got3, scipy.fft.dct(x64, type=3, axis=1)) < 1e-4, n
+        err = capsys.readouterr().err
+        assert f"dct2 n={n} axis=1 -> engine-dct+moveaxis" in err, err
+        assert f"dct3 n={n} axis=1 -> engine-dct+moveaxis" in err, err
 
 
-def test_pallas_dct4_fused_mid():
-    # the fully fused 4-real-pipeline DCT-IV kernel (round 4): covers the
-    # f=8 butterfly split (2048), the f=9 matrix-combine split (2304), and
-    # a non-128-multiple lane extent (cols=200 partial last block)
-    import scipy.fft
-
-    from ndrustfft_tpu.ops.pallas.dct import dct4_mid_supported, dct4_pallas_mid
-
+@pytest.mark.parametrize("n,cols", [(2048, 256), (2304, 256), (1536, 200)])
+def test_pallas_dct4_fused_mid(n, cols, capsys):
+    # DCT-IV on the middle axis: a power of two, a 9-factor split and a
+    # lane extent that is no multiple of 128
     rng = np.random.default_rng(21)
-    for n, cols in [(2048, 256), (2304, 256), (1536, 200)]:
-        assert dct4_mid_supported(n, jnp.float32), n
-        x = rng.standard_normal((2, n, cols)).astype(np.float32)
-        got = np.asarray(dct4_pallas_mid(jnp.asarray(x), 2.0))
-        ref = scipy.fft.dct(x, type=4, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4, (n, cols)
-    # unsupported half lengths (no {128,256} twostep split) are refused
-    assert not dct4_mid_supported(2018, jnp.float32)   # hl=1009 prime
-    assert not dct4_mid_supported(2049, jnp.float32)   # odd n
+    x = rng.standard_normal((2, n, cols)).astype(np.float32)
+    got = np.asarray(nddct4(jnp.asarray(x), DctHandler(n), axis=1))
+    assert f"dct4 n={n} axis=1 -> engine-dct+moveaxis" in \
+        capsys.readouterr().err
+    ref = scipy.fft.dct(x.astype(np.float64), type=4, axis=1)
+    assert _rel(got, ref) < 1e-4, (n, cols)
 
 
-def test_pallas_dct3_unperm_in_kernel():
-    # DCT-III's output un-permutation now runs in-kernel (sign-+1 second
-    # pipeline): the builder's single output must already be interleaved
-    import scipy.fft
-
-    from ndrustfft_tpu.ops.pallas.dct import _build_dct3_mid, dot_mode
-
+def test_pallas_dct3_unperm_in_kernel(capsys):
+    # DCT-III's output un-permutation on the middle axis
     rng = np.random.default_rng(22)
     for n, cols in [(1024, 256), (2048, 200)]:
         x = rng.standard_normal((2, n, cols)).astype(np.float32)
-        run = _build_dct3_mid(n, 2, cols, "float32", True, dot_mode(), 2.0)
-        got = np.asarray(run(jnp.asarray(x)))
+        got = np.asarray(nddct3(jnp.asarray(x), DctHandler(n), axis=1))
         assert got.shape == x.shape
-        ref = scipy.fft.dct(x, type=3, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4, (n, cols)
+        assert f"dct3 n={n} axis=1 -> engine-dct+moveaxis" in \
+            capsys.readouterr().err
+        ref = scipy.fft.dct(x.astype(np.float64), type=3, axis=1)
+        assert _rel(got, ref) < 1e-4, (n, cols)
 
 
-def test_pallas_dct1_axis_mid():
-    # DCT-I along axis 1 via the packed-mid r2c kernel (ext = 2n-2)
-    import scipy.fft
-
-    from ndrustfft_tpu import DctHandler, nddct1
-
+def test_pallas_dct1_axis_mid(capsys):
+    # DCT-I along axis 1 (extension length 2n-2)
     rng = np.random.default_rng(17)
     for n in [513, 1025]:
         x = rng.standard_normal((2, n, 16)).astype(np.float32)
-        h = DctHandler(n)
-        got = np.asarray(nddct1(jnp.asarray(x), h, axis=1))
-        ref = scipy.fft.dct(x, type=1, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4, n
+        got = np.asarray(nddct1(jnp.asarray(x), DctHandler(n), axis=1))
+        assert f"dct1 n={n} axis=1 -> engine-dct+moveaxis" in \
+            capsys.readouterr().err
+        ref = scipy.fft.dct(x.astype(np.float64), type=1, axis=1)
+        assert _rel(got, ref) < 1e-4, n
 
 
 def test_pallas_dct_dense_mid_all_types():
-    # dense-matrix DCT kernel: odd sizes (the reference's dct2d grid) and
-    # DCT-IV, all four types vs scipy
-    import scipy.fft
-
-    from ndrustfft_tpu import DctHandler, nddct1, nddct2, nddct3, nddct4
-
+    # odd sizes (the reference's dct2d grid) and DCT-IV, all four types vs
+    # scipy
     rng = np.random.default_rng(18)
     fns = {1: nddct1, 2: nddct2, 3: nddct3, 4: nddct4}
     for n in [129, 265]:
@@ -389,150 +327,80 @@ def test_pallas_dct_dense_mid_all_types():
         h = DctHandler(n)
         for k, fn in fns.items():
             got = np.asarray(fn(jnp.asarray(x), h, axis=1))
-            ref = scipy.fft.dct(x, type=k, axis=1)
-            assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-4, (n, k)
-    # even DCT-IV also routes dense
+            ref = scipy.fft.dct(x.astype(np.float64), type=k, axis=1)
+            assert _rel(got, ref) < 2e-4, (n, k)
+    # even DCT-IV
     x = rng.standard_normal((2, 512, 16)).astype(np.float32)
     got = np.asarray(nddct4(jnp.asarray(x), DctHandler(512), axis=1))
-    ref = scipy.fft.dct(x, type=4, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-4
+    ref = scipy.fft.dct(x.astype(np.float64), type=4, axis=1)
+    assert _rel(got, ref) < 2e-4
 
 
-def test_pallas_rfft_dense_mid():
-    # dense r2c/c2r mid kernels for even n without a twostep-eligible half
-    # (n=264: h=132), incl. the DC/Nyquist semantics baked into the matrix
-    from ndrustfft_tpu import ndifft_r2c
-
+def test_pallas_rfft_dense_mid(capsys):
+    # even n with an odd half length (n=264: h=132 = 4*3*11), incl. the
+    # DC/Nyquist semantics
     rng = np.random.default_rng(19)
     for n in [128, 264]:
         x = rng.standard_normal((2, n, 16)).astype(np.float32)
         h = R2cFftHandler(n)
         got = np.asarray(ndfft_r2c(jnp.asarray(x), h, axis=1))
-        ref = np.fft.rfft(x, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-4, n
+        assert _rel(got, np.fft.rfft(x.astype(np.float64), axis=1)) < 2e-4, n
         back = np.asarray(ndifft_r2c(jnp.asarray(got), h, axis=1))
         assert np.abs(back - x).max() < 1e-3, n
+        assert f"r2c n={n} axis=1 -> engine-r2c-half+moveaxis" in \
+            capsys.readouterr().err
     n, m = 264, 133
-    spec = (rng.standard_normal((2, m, 16)) + 1j * rng.standard_normal(
-        (2, m, 16))).astype(np.complex64)
+    spec = _cplx(rng, (2, m, 16))
     spec[:, 0, :] += 100j
     spec[:, -1, :] += 100j
     got = np.asarray(ndifft_r2c(jnp.asarray(spec), R2cFftHandler(n), axis=1))
-    ref = np.fft.irfft(spec, n=n, axis=1)
+    ref = np.fft.irfft(spec.astype(np.complex128), n=n, axis=1)
     assert np.abs(got - ref).max() < 1e-3
 
 
-def test_pallas_fused_bluestein_mid():
-    """Prime/arbitrary n on a non-minor axis rides the fused single-kernel
-    chirp-z path (dense / bts2 / ts cores by M) — rustfft any-n parity
-    (src/lib.rs:295-297) at kernel HBM cost."""
-    from ndrustfft_tpu.ops.pallas.fft import blue_kernel_M, blue_mid_supported
-    from ndrustfft_tpu.plan import get_c2c_plan
-
-    # (primes <= max_base_radix=128 plan as ct with a dense base, so the
-    # smallest Bluestein prime here is 131)
-    for n, want_M in ((131, 384), (509, 1024), (2053, 4224)):
-        assert blue_kernel_M(n) == want_M
+def test_pallas_fused_bluestein_mid(capsys):
+    """Prime n on a non-minor axis rides the chirp-z lowering — rustfft
+    any-n parity (src/lib.rs:295-297). Primes <= max_base_radix=128 plan
+    as ct with a dense base, so the smallest Bluestein prime here is 131."""
+    for n in (131, 509, 2053):
         plan = get_c2c_plan(n, -1)
         assert plan.kind == "bluestein"
-        assert blue_mid_supported(plan, jnp.float32)
         rng = np.random.default_rng(n)
-        x = (rng.standard_normal((2, n, 16))
-             + 1j * rng.standard_normal((2, n, 16))).astype(np.complex64)
+        x = _cplx(rng, (2, n, 16))
         h = FftHandler(n)
         got = np.asarray(ndfft(jnp.asarray(x), h, axis=1))
-        ref = np.fft.fft(x, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+        assert (f"fft n={n} axis=1 -> engine-bluestein(M={plan.M})+moveaxis"
+                in capsys.readouterr().err)
+        assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-4
         rt = np.asarray(ndifft(jnp.asarray(got), h, axis=1))
         assert np.abs(rt - x).max() < 1e-4
 
 
-def test_pallas_fourstep_long_transform():
-    """n > 65536 stays kernel-driven via the four-step decomposition
-    (fused inter-stage twiddle; SURVEY §5 north star, round-2 verdict
-    next #2)."""
-    from ndrustfft_tpu.ops.pallas.fft import (
-        fourstep_split, fourstep_supported,
-    )
-    from ndrustfft_tpu.plan import get_c2c_plan
-
+def test_pallas_fourstep_long_transform(capsys):
+    """n = 2^17: a long transform through the multi-level engine
+    recursion (SURVEY §5 long-context analog)."""
     n = 131072
-    assert fourstep_split(n) == (512, 256)
-    plan = get_c2c_plan(n, -1)
-    assert fourstep_supported(plan, jnp.float32)
     rng = np.random.default_rng(0)
-    x = (rng.standard_normal((2, n))
-         + 1j * rng.standard_normal((2, n))).astype(np.complex64)
+    x = _cplx(rng, (2, n))
     h = FftHandler(n)
     got = np.asarray(ndfft(jnp.asarray(x), h, axis=1))
-    ref = np.fft.fft(x, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    assert f"fft n={n} axis=1 -> engine-lane-last" in capsys.readouterr().err
+    assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-4
     rt = np.asarray(ndifft(jnp.asarray(got), h, axis=1))
     assert np.abs(rt - x).max() < 1e-3
 
 
-def test_pallas_dct1_natural_mid():
-    """DCT-I beyond the dense cap rides the natural-layout kernel (streams
-    built in-kernel; one XLA flip pass) — round-2 verdict weak #4 fix."""
-    import scipy.fft as sf
-
-    from ndrustfft_tpu import DctHandler, Normalization, nddct1
-    from ndrustfft_tpu.ops.pallas.rfft import dct1_mid_supported
-
+def test_pallas_dct1_natural_mid(capsys):
+    """DCT-I at n=2049 on the middle axis, with a scalar normalization."""
     n = 2049
-    assert dct1_mid_supported(n, jnp.float32)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, n, 16)).astype(np.float32)
     got = np.asarray(nddct1(jnp.asarray(x), DctHandler(n), axis=1))
-    ref = sf.dct(x.astype(np.float64), type=1, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
-    # scalar norm fuses into the kernel constants
+    assert f"dct1 n={n} axis=1 -> engine-dct+moveaxis" in \
+        capsys.readouterr().err
+    ref = scipy.fft.dct(x.astype(np.float64), type=1, axis=1)
+    assert _rel(got, ref) < 1e-4
+    # scalar norm folds into the lowering's constants
     hs = DctHandler(n).normalization(Normalization.scalar(3.0))
     got3 = np.asarray(nddct1(jnp.asarray(x), hs, axis=1))
     assert np.abs(got3 - 1.5 * ref).max() / np.abs(ref).max() < 1e-4
-
-
-def test_bts2_core_trim_and_zero_aware_butterflies():
-    """The Bluestein inverse-core trim (p_trim) must equal the full core
-    sliced, and the zero-aware stage-1 butterflies (zero_from) must equal
-    explicitly-materialized zero padding — the two round-4 chirp-z
-    optimizations are pure dataflow cuts, not approximations."""
-    from ndrustfft_tpu.ops.pallas.fft import _bts2_consts, _bts2_core
-
-    n, cols = 2048, 64
-    rng = np.random.default_rng(7)
-    xr = jnp.asarray(rng.standard_normal((n, cols)).astype(np.float32))
-    xi = jnp.asarray(rng.standard_normal((n, cols)).astype(np.float32))
-
-    for sign in (-1, +1):
-        consts, (m, f) = _bts2_consts(n, sign, np.float32, "f32")
-        full_r, full_i = _bts2_core(xr, xi, consts, m, f, "f32", sign)
-
-        # p_trim: keep k = q + f*p' < f*p_trim rows, exactly
-        out_rows = 1021  # a Bluestein n inside M=2048
-        p_trim = min(m, -(-out_rows // f))
-        tcon, _ = _bts2_consts(n, sign, np.float32, "f32", p_trim=p_trim)
-        tr, ti = _bts2_core(xr, xi, tcon, m, f, "f32", sign, p_trim=p_trim)
-        assert tr.shape == (f * p_trim, cols)
-        np.testing.assert_allclose(np.asarray(tr),
-                                   np.asarray(full_r[:f * p_trim]),
-                                   rtol=0, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(ti),
-                                   np.asarray(full_i[:f * p_trim]),
-                                   rtol=0, atol=1e-4)
-
-        # zero_from: planes a >= zfrom are exact zero; pass only the live
-        # rows and let stage 1 degenerate the dead butterflies
-        zfrom = f // 2 + 1
-        live = zfrom * m
-        xr_z = jnp.concatenate([xr[:live], jnp.zeros((n - live, cols),
-                                                     jnp.float32)])
-        xi_z = jnp.concatenate([xi[:live], jnp.zeros((n - live, cols),
-                                                     jnp.float32)])
-        ref_r, ref_i = _bts2_core(xr_z, xi_z, consts, m, f, "f32", sign)
-        zr, zi = _bts2_core(xr[:live], xi[:live], consts, m, f, "f32",
-                            sign, zero_from=zfrom)
-        np.testing.assert_allclose(np.asarray(zr), np.asarray(ref_r),
-                                   rtol=0, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(zi), np.asarray(ref_i),
-                                   rtol=0, atol=1e-4)

@@ -83,6 +83,24 @@ def test_ndfft_par_under_jit_all_to_all_not_all_gather():
                                rtol=1e-5, atol=1e-4)
 
 
+def test_par_under_jit_f64_keeps_spmd():
+    """complex128 takes the same partitioned path as complex64 on every
+    backend: a sharded transform axis lowers to all_to_all, never an
+    all-gather, and the result stays f64-accurate."""
+    v = _cx((_N, _N), seed=5)
+    mesh = mesh_1d()
+    x = _shard(jnp.asarray(v, jnp.complex128), mesh, P("d", None))
+    h = FftHandler(_N)
+    fn = jax.jit(lambda a: ndfft_par(a, h, axis=0))
+    a2a, ag, ar = _counts(fn.lower(x).compile().as_text())
+    assert a2a >= 1 and ag == 0 and ar == 0, (a2a, ag, ar)
+    out = fn(x)
+    assert out.dtype == jnp.complex128
+    ref = np.fft.fft(v, axis=0)
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-12,
+                               atol=1e-12 * np.abs(ref).max())
+
+
 def test_par_under_jit_unsharded_no_collectives():
     v = _cx((_N, _N), 1)
     h = FftHandler(_N)

@@ -357,7 +357,7 @@ def test_grad_through_pencil_matches_serial():
 
 
 def test_pencil_bf16_wire_numerics():
-    # opt-in bf16 wire format (round-4: halve bytes over ICI): the 3-D
+    # opt-in bf16 wire format (halves the bytes on the wire): the 3-D
     # rfftn+irfftn roundtrip crosses the wire 4x with 8-bit-mantissa
     # rounding each time; pin the measured error tier and that the
     # default (f32 wire) path is untouched by the feature

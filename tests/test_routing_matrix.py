@@ -1,15 +1,17 @@
-"""Routing-matrix regression: every (transform, size, axis, norm) combo
-must be numerically consistent between the Pallas kernel paths
-(interpret mode) and the pure-XLA engine paths.
+"""Routing-matrix regression: every (transform, size, axis, norm) combo,
+through the public API, against the numpy/scipy float64 reference, with
+the route each combination compiles to asserted through
+``config.debug_plan_log``.
 
-The api dispatch now has many branches (lane-last natural kernels,
-axis-mid natural kernels, dense-matrix kernels, twostep/generic bodies,
-engine fallbacks); this sweep pins that whichever branch a combination
-lands on computes the same values.
+The sizes cover the distinct lowerings (mixed-radix and power-of-two
+Cooley-Tukey, odd-n real transforms, the minor and middle axes) and every
+normalization policy (Default, NONE, scalar and a nonlinear custom
+callable, which catches application-point bugs).
 """
 
 import numpy as np
 import pytest
+import scipy.fft as sfft
 
 import jax.numpy as jnp
 from ndrustfft_tpu import (
@@ -21,12 +23,41 @@ from ndrustfft_tpu.config import config
 
 _DCT = {1: nddct1, 2: nddct2, 3: nddct3, 4: nddct4}
 _DST = {1: nddst1, 2: nddst2, 3: nddst3, 4: nddst4}
+_CUSTOM = lambda v: 0.3 * v + 0.01 * v * v  # noqa: E731 — nonlinear
 _NORMS = {"default": None, "none": Normalization.NONE,
           "scalar": Normalization.scalar(0.3),
-          # custom policies keep the kernel routes since round 4 (the
-          # callable runs as one fused XLA prologue/epilogue, api.py
-          # _apply_custom); a nonlinear fn catches application-point bugs
-          "custom": Normalization.custom(lambda v: 0.3 * v + 0.01 * v * v)}
+          "custom": Normalization.custom(_CUSTOM)}
+
+
+def _policy(nname, v, default):
+    """The normalization policy applied to ``v`` (numpy)."""
+    return {"default": default * v, "none": v, "scalar": 0.3 * v,
+            "custom": _CUSTOM(v)}[nname]
+
+
+def _oracle(n, axis, xr, xc):
+    """float64 reference for every (transform, policy) of ``_run_all``:
+    C2C/C2R normalize after the unnormalized transform, DCT/DST before it
+    (reference src/lib.rs:313-338, 506-523, 688-741)."""
+    xr = xr.astype(np.float64)
+    xc = xc.astype(np.complex128)
+    out = {}
+    for nname in _NORMS:
+        out[("fft", nname)] = np.fft.fft(xc, axis=axis)
+        out[("ifft", nname)] = _policy(
+            nname, np.fft.ifft(xc, axis=axis) * n, 1.0 / n)
+        sp = np.fft.rfft(xr, axis=axis)
+        out[("r2c", nname)] = sp
+        # the inverse sees the f32 spectrum ndfft_r2c returned; at the
+        # roundtrip the policy turns n * x into the policy of n * x
+        out[("c2r", nname)] = np.fft.irfft(
+            _policy(nname, sp, 1.0 / n), n=n, axis=axis) * n
+        for k in _DCT:
+            out[(f"dct{k}", nname)] = sfft.dct(
+                _policy(nname, xr, 2.0), type=k, axis=axis) / 2
+            out[(f"dst{k}", nname)] = sfft.dst(
+                _policy(nname, xr, 2.0), type=k, axis=axis) / 2
+    return out
 
 
 def _run_all(n, axis, xr, xc):
@@ -53,43 +84,54 @@ def _run_all(n, axis, xr, xc):
 
 
 @pytest.mark.parametrize("n,shape,axis", [
-    (264, (2, 264, 16), 1),    # dense C2C / dense rfft / dense DCT
-    (512, (2, 512, 16), 1),    # twostep + butterfly f=4 / nat mid kernels
-    (129, (2, 129, 16), 1),    # odd: dense DCT, odd r2c rowpair
-    (1024, (2, 1024, 16), 1),  # headline: twostep f=8, all mid kernels
+    (264, (2, 264, 16), 1),    # mixed radix 8*3*11, middle axis
+    (512, (2, 512, 16), 1),    # power of two, middle axis
+    (129, (2, 129, 16), 1),    # odd: odd r2c, odd DCT Makhoul
+    (1024, (2, 1024, 16), 1),  # headline size, middle axis
     (264, (16, 264), 1),       # lane-last orientation
 ])
-def test_routing_matrix_pallas_vs_engine(n, shape, axis):
+def test_routing_matrix_pallas_vs_engine(n, shape, axis, capsys):
     from ndrustfft_tpu.api import _jitted
 
     rng = np.random.default_rng(n)
     xr = rng.standard_normal(shape).astype(np.float32)
     xc = (rng.standard_normal(shape)
           + 1j * rng.standard_normal(shape)).astype(np.complex64)
-    old = (config.use_pallas, config.pallas_interpret)
+    old = config.debug_plan_log
     try:
-        config.use_pallas = False
-        config.pallas_interpret = False
+        config.debug_plan_log = True
         _jitted.cache_clear()
-        a = _run_all(n, axis, xr, xc)
-        config.use_pallas = True
-        config.pallas_interpret = True
-        _jitted.cache_clear()
-        b = _run_all(n, axis, xr, xc)
+        got = _run_all(n, axis, xr, xc)
+        err = capsys.readouterr().err
     finally:
-        config.use_pallas, config.pallas_interpret = old
+        config.debug_plan_log = old
         _jitted.cache_clear()
-    for key in a:
-        err = np.abs(b[key] - a[key]).max() / max(np.abs(a[key]).max(), 1e-30)
-        assert err < 1e-3, (n, shape, axis, key, err)
+    moved = "" if axis == len(shape) - 1 else "+moveaxis"
+    half = "half" if n % 2 == 0 else "odd"
+    for route in (f"fft n={n} axis={axis} -> engine-lane-last{moved}",
+                  f"r2c n={n} axis={axis} -> engine-r2c-{half}{moved}",
+                  f"c2r n={n} axis={axis} -> engine-c2r{moved}",
+                  f"dct2 n={n} axis={axis} -> engine-dct{moved}",
+                  f"dst1 n={n} axis={axis} -> engine-dst1{moved}"):
+        assert route + "\n" in err, (route, err)
+    # c2r inverts the f32 spectrum the forward returned, so its reference
+    # starts from that spectrum
+    want = _oracle(n, axis, xr, xc)
+    for key in got:
+        ref = want[key]
+        if key[0] == "c2r":
+            nname = key[1]
+            ref = np.fft.irfft(_policy(nname, got[("r2c", nname)].astype(
+                np.complex128), 1.0 / n), n=n, axis=axis) * n
+        e = np.abs(got[key] - ref).max() / max(np.abs(ref).max(), 1e-30)
+        assert e < 1e-3, (n, shape, axis, key, e)
 
 
 def test_custom_normalization_keeps_kernel_route(capsys):
-    """Round-3 verdict missing #3: a Normalization.custom policy must NOT
-    disqualify the Pallas kernel routes. The callable runs as one fused XLA
-    prologue/epilogue at the reference's application point (ifft: after,
-    src/lib.rs:321-331; c2r: before the inverse, :506-523; dct: before,
-    :688-741) while the transform core keeps its kernel path."""
+    """A Normalization.custom policy keeps the engine route: the callable
+    runs as one fused XLA prologue/epilogue at the reference's application
+    point (ifft: after, src/lib.rs:321-331; c2r: before the inverse,
+    :506-523; dct: before, :688-741) around the unnormalized transform."""
     from ndrustfft_tpu import nddct2 as _dct2
     from ndrustfft_tpu import ndifft as _ifft
     from ndrustfft_tpu import ndifft_r2c as _ic2r
@@ -105,10 +147,8 @@ def test_custom_normalization_keeps_kernel_route(capsys):
           ).astype(np.complex64)
     fn = lambda v: 3.0 * v + 0.1 * v * v  # noqa: E731 — nonlinear on purpose
     cn = Normalization.custom(fn)
-    old = (config.use_pallas, config.pallas_interpret, config.debug_plan_log)
+    old = config.debug_plan_log
     try:
-        config.use_pallas = True
-        config.pallas_interpret = True
         config.debug_plan_log = True
         _jitted.cache_clear()
         got_i = np.asarray(_ifft(jnp.asarray(xc),
@@ -119,13 +159,12 @@ def test_custom_normalization_keeps_kernel_route(capsys):
                                  DctHandler(n).normalization(cn), axis=1))
         err = capsys.readouterr().err
     finally:
-        (config.use_pallas, config.pallas_interpret,
-         config.debug_plan_log) = old
+        config.debug_plan_log = old
         _jitted.cache_clear()
-    # every custom-normalized call still dispatched to a pallas kernel
-    assert "ifft n=128 axis=1 -> pallas-" in err, err
-    assert "c2r n=128 axis=1 -> pallas-" in err, err
-    assert "dct2 n=128 axis=1 -> pallas-" in err, err
+    # every custom-normalized call dispatched to the engine core
+    assert "ifft n=128 axis=1 -> engine-lane-last+moveaxis" in err, err
+    assert "c2r n=128 axis=1 -> engine-c2r+moveaxis" in err, err
+    assert "dct2 n=128 axis=1 -> engine-dct+moveaxis" in err, err
     # semantics at the reference's exact application points
     unnorm = np.fft.ifft(xc, axis=1) * n
     want_i = 3.0 * unnorm + 0.1 * unnorm * unnorm
@@ -143,14 +182,9 @@ def test_custom_normalization_keeps_kernel_route(capsys):
 
 
 def test_dct4_kernel_routes_beyond_dense_cap(capsys):
-    """Round-3 verdict weak #7: DCT-IV past the dense cap (n=1100) must NOT
-    silently ride engine+moveaxis. n=2048 takes the round-4 FUSED kernel
-    (entry chirp/deinterleave + both twostep pipelines + exit chirp in one
-    pass); n=2018 (half length 1009 prime, no twostep split) falls back to
-    the half-length-C2C composite over the fused chirp-z kernel. DST-IV
-    rides the same paths via its flip/sign conjugation."""
-    import scipy.fft as sfft
-
+    """DCT-IV at n=2048 and at n=2018 (half length 1009, a prime whose
+    half-length C2C plans as Bluestein) on the middle axis; DST-IV rides
+    the same lowering via its flip/sign conjugation."""
     from ndrustfft_tpu import nddct4 as _dct4
     from ndrustfft_tpu import nddst4 as _dst4
     from ndrustfft_tpu.api import _jitted
@@ -158,10 +192,8 @@ def test_dct4_kernel_routes_beyond_dense_cap(capsys):
     rng = np.random.default_rng(3)
     x = rng.standard_normal((1, 2048, 16)).astype(np.float32)
     xb = rng.standard_normal((1, 2018, 16)).astype(np.float32)
-    old = (config.use_pallas, config.pallas_interpret, config.debug_plan_log)
+    old = config.debug_plan_log
     try:
-        config.use_pallas = True
-        config.pallas_interpret = True
         config.debug_plan_log = True
         _jitted.cache_clear()
         got4 = np.asarray(_dct4(jnp.asarray(x), DctHandler(2048), axis=1))
@@ -169,12 +201,10 @@ def test_dct4_kernel_routes_beyond_dense_cap(capsys):
         gotb = np.asarray(_dct4(jnp.asarray(xb), DctHandler(2018), axis=1))
         err = capsys.readouterr().err
     finally:
-        (config.use_pallas, config.pallas_interpret,
-         config.debug_plan_log) = old
+        config.debug_plan_log = old
         _jitted.cache_clear()
-    assert "dct4 n=2048 axis=1 -> pallas-dct4-fused(hl=1024)" in err, err
-    assert "dct4 n=2018 axis=1 -> pallas-dct4-half-c2c(m=1009,blue)" in err, \
-        err
+    assert "dct4 n=2048 axis=1 -> engine-dct+moveaxis" in err, err
+    assert "dct4 n=2018 axis=1 -> engine-dct+moveaxis" in err, err
     ref4 = sfft.dct(x.astype(np.float64), type=4, axis=1)
     assert np.abs(got4 - ref4).max() / np.abs(ref4).max() < 1e-4
     refs = sfft.dst(x.astype(np.float64), type=4, axis=1)
@@ -183,215 +213,19 @@ def test_dct4_kernel_routes_beyond_dense_cap(capsys):
     assert np.abs(gotb - refb).max() / np.abs(refb).max() < 1e-4
 
 
-def test_eligibility_boundaries():
-    """Pin the kernel-eligibility thresholds at their exact boundaries
-    (round-2 verdict weak #8): a change that silently moves a cliff fails
-    here, and config.debug_plan_log (tested in test_utils) tells users
-    which side of a cliff they landed on."""
-    import jax.numpy as jnp
-
-    from ndrustfft_tpu import config
-    from ndrustfft_tpu.api import _mid_dims
-    from ndrustfft_tpu.ops.pallas.fft import (
-        _MAX_N, _twostep_split, blue_kernel_M, fourstep_split,
-        pallas_supported,
-    )
-    from ndrustfft_tpu.plan import get_c2c_plan
-
-    old = config.pallas_interpret
-    config.pallas_interpret = False
-    try:
-        class _A:  # minimal shape carrier for _mid_dims
-            def __init__(self, shape):
-                self.shape = shape
-                self.ndim = len(shape)
-
-        # cols threshold for the axis-mid kernels is 128 on real hardware
-        assert _mid_dims(_A((2, 64, 127)), 1) is None
-        assert _mid_dims(_A((2, 64, 128)), 1) == (2, 128)
-        # and 8 in interpret mode
-        config.pallas_interpret = True
-        assert _mid_dims(_A((2, 64, 8)), 1) == (2, 8)
-        assert _mid_dims(_A((2, 64, 7)), 1) is None
-    finally:
-        config.pallas_interpret = old
-    # twostep split: m must be a multiple of 128 with f <= 256
-    assert _twostep_split(128 * 256) == (128, 256)
-    assert _twostep_split(128 * 257) is None
-    assert _twostep_split(960) is None          # 960 = 2^6*3*5, 128 ∤ 960
-    # single-kernel range ends at the VMEM working-set bound (~20k);
-    # the four-step covers everything beyond it (incl. the former silent
-    # 20481..65536 engine band)
-    config.pallas_interpret = True
-    try:
-        from ndrustfft_tpu.ops.pallas.fft import fourstep_supported
-
-        assert pallas_supported(get_c2c_plan(16384, -1), jnp.float32)
-        assert not pallas_supported(get_c2c_plan(32768, -1), jnp.float32)
-        assert fourstep_supported(get_c2c_plan(32768, -1), jnp.float32)
-        assert not fourstep_supported(get_c2c_plan(16384, -1), jnp.float32)
-        assert not pallas_supported(get_c2c_plan(2 * _MAX_N, -1),
-                                    jnp.float32)
-        assert fourstep_split(2 * _MAX_N) is not None
-        assert fourstep_supported(get_c2c_plan(2 * _MAX_N, -1), jnp.float32)
-    finally:
-        config.pallas_interpret = old
-    # Bluestein kernel M: smallest 128-multiple >= 2n-1, capped
-    assert blue_kernel_M(509) == 1024
-    assert blue_kernel_M(65) == 129             # dense core region
-    assert blue_kernel_M(16000) is None         # beyond _BLUE_MAX_M
-    # Bluestein lane tile: widest of {512,256,128} whose ~12 live length-M
-    # copies fit the VMEM fraction, clamped to the cols granule
-    from ndrustfft_tpu.ops.pallas.fft import _blue_tile
-
-    assert _blue_tile(1024, 509, 4) == 512      # the fft2d_prime_509 shape
-    assert _blue_tile(2048, 1021, 4) == 128     # M>=2048 floors at 128
-    #                                             (A/B/A: 153.9 vs 168-174
-    #                                             us at tile 256, BASELINE.md)
-    assert _blue_tile(1024, 256, 4) == 256      # granule clamp, no padding
-    assert _blue_tile(1024, 200, 4) == 256      # rounds up to the granule
-    assert _blue_tile(1024, 128, 4) == 128      # cols <= 128 -> cols
-    assert _blue_tile(13568, 1024, 4) == 128    # Mcap floors at 128
-    assert _blue_tile(1024, 509, 4, tcfg=256) == 256   # knob override
-    # axis-mid lane tile: VMEM-budget tile clamped to the cols granule —
-    # the 264 grid row must get the 384 single block (1.45x padded lanes),
-    # not the 512 budget tile (1.94x dense-dot FLOPs, round-3 capture)
-    from ndrustfft_tpu.ops.pallas.fft import _mid_tile
-
-    assert _mid_tile(264, 264, 4) == 384        # fft2d_264: single block
-    assert _mid_tile(265, 265, 4) == 384        # the odd DCT twin
-    assert _mid_tile(1024, 1024, 4) == 512      # headline row unchanged
-    assert _mid_tile(512, 512, 4) == 512        # single full block
-    assert _mid_tile(513, 513, 4) == 512        # budget binds below ru=640
-    assert _mid_tile(1024, 128, 4) == 128       # cols <= 128 -> cols
-    assert _mid_tile(1024, 200, 4) == 256       # granule round-up
-    assert _mid_tile(264, 264, 4, tcfg=128) == 128   # knob override
-    assert _mid_tile(264, 264, 4, tcfg=512) == 264   # knob clamps to extent
-    # a forced tile below the extent must snap to the 128 granule (a raw
-    # min(cols, tcfg)=200 block is Mosaic-illegal: neither a 128-multiple
-    # nor the full extent)
-    assert _mid_tile(1024, 1024, 4, tcfg=200) == 128
-    assert _blue_tile(1024, 509, 4, tcfg=200) == 128
-    # rfft/dct mid builders share the same policy at their 256 cap
-    from ndrustfft_tpu.ops.pallas.rfft import _mid_tile as _rfft_mid_tile
-
-    assert _rfft_mid_tile(264) == 256               # granule clamp == old 256
-    assert _rfft_mid_tile(1024) == 256              # flat cap unchanged
-    assert _rfft_mid_tile(200, tcfg=256) == 200     # full-extent override
-    assert _rfft_mid_tile(1024, tcfg=200) == 128    # snap below extent
-
-
-def test_mid_split_forces_bts2_body():
-    """config.mid_split must reach the bts2 body (review fix): the forced
-    m=256 split previously failed the max_base_radix gate and silently
-    rerouted to the slow generic kernel, so the knob never measured the
-    documented m=256/f=4 variant."""
-    from ndrustfft_tpu.api import _jitted
-    from ndrustfft_tpu.ops.pallas.fft import (
-        _twostep_split, mid_kernel_kind,
-    )
-
-    assert _twostep_split(1024, 256) == (256, 4)
-    old = (config.mid_split, config.use_pallas, config.pallas_interpret)
-    try:
-        config.mid_split = 256
-        assert mid_kernel_kind(1024) == "bts2"     # not 'generic'
-        # the knob is bts2-only: other bodies compute their own split
-        config.mid_body = "ts"
-        assert mid_kernel_kind(1024) == "ts"
-        config.mid_body = "bts2"
-        # numerics through the forced m=256/f=4 variant
-        config.use_pallas = True
-        config.pallas_interpret = True
-        _jitted.cache_clear()
-        rng = np.random.default_rng(7)
-        x = (rng.standard_normal((2, 1024, 8))
-             + 1j * rng.standard_normal((2, 1024, 8))).astype(np.complex64)
-        got = np.asarray(ndfft(jnp.asarray(x), FftHandler(1024), axis=1))
-        ref = np.fft.fft(x, axis=1)
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
-    finally:
-        config.mid_split, config.use_pallas, config.pallas_interpret = old
-        config.mid_body = "bts2"
-        _jitted.cache_clear()
-
-
-def test_vmem_bounds_reject_oversized_kernels():
-    """Eligibility gates must bound the kernels' VMEM working set (review
-    fix): oversized cases fall back to the engine instead of failing
-    Mosaic compile with a scoped-vmem error."""
-    from ndrustfft_tpu.ops.pallas.fft import (
-        _FOURSTEP_MAX_N, blue_kernel_M, blue_mid_supported,
-        fourstep_split, fourstep_supported,
-    )
-    from ndrustfft_tpu.plan import get_c2c_plan
-
-    old = config.pallas_interpret
-    config.pallas_interpret = True
-    try:
-        # fused-Bluestein worst case: M=16384 holds ~12 live (M, 128) f32
-        # intermediates (~100 MB) > the scoped VMEM limit
-        p = get_c2c_plan(8191, -1)
-        assert p.kind == "bluestein"
-        assert blue_kernel_M(8191) == 16384
-        assert not blue_mid_supported(p, jnp.float32)
-        # the largest admitted M (13568 at n=6761) stays under the budget
-        # and is compile-probed on real Mosaic (bench.py --compile-check)
-        p2 = get_c2c_plan(6761, -1)
-        assert blue_kernel_M(6761) == 13568
-        assert blue_mid_supported(p2, jnp.float32)
-        # four-step exit-twiddle const table is 8 bytes/point baked into
-        # the program: bounded at 2^22 so it never dwarfs the data
-        assert fourstep_split(1 << 23) is not None
-        assert not fourstep_supported(get_c2c_plan(1 << 23, -1), jnp.float32)
-        assert _FOURSTEP_MAX_N == 1 << 22
-        assert fourstep_supported(get_c2c_plan(1 << 22, -1), jnp.float32)
-    finally:
-        config.pallas_interpret = old
-
-
 def test_generic_kernel_compile_pathology_gate():
-    """Misaligned lane factors at large n are a measured Mosaic COMPILE
-    pathology (n=4374, f=243: 781 s on v5e vs 21-44 s for 8-aligned
-    neighbors — the round-3 dct2d_23_2049 blowout, BASELINE.md). Three
-    defenses, each pinned here:
-
-    1. Bluestein plans choose a 3-smooth M that is a multiple of 128, so
-       the two length-M sub-FFTs ride the twostep kernel (plan.blue_sub_len).
-    2. _lane_factor prefers an 8-aligned f for n > 1024 (1944 used to pick
-       f=243 over 216).
-    3. pallas_supported rejects n > 1024 whose only lane factors are
-       misaligned (e.g. n = 2*3^k): they fall to the einsum engine.
-    """
-    from ndrustfft_tpu.ops.pallas.fft import (
-        _lane_factor, _twostep_split, pallas_supported,
-    )
+    """Bluestein plans choose a 3-smooth chirp length M that is a multiple
+    of 128 above 256 (plan.blue_sub_len), so the two length-M sub-FFTs'
+    stage matmuls run on whole 128-wide tiles; below that the FLOP-minimal
+    3-smooth choice stands."""
     from ndrustfft_tpu.plan import blue_sub_len, get_c2c_plan
 
-    # (1) every Bluestein M in the kernel range has a twostep split
     for n, want_M in [(2049, 4608), (683, 1536), (4099, 9216)]:
         p = get_c2c_plan(n, -1)
         assert p.kind == "bluestein" and p.M == want_M == blue_sub_len(n)
-        assert _twostep_split(p.M) is not None
+        assert p.M % 128 == 0
     # FLOP-minimal choices stand when already aligned or small
     assert blue_sub_len(509) == 1024
     assert blue_sub_len(1021) == 2048
     assert blue_sub_len(127) == 256
     assert blue_sub_len(7) == 16
-
-    # (2) the 8-aligned preference tier (n > 1024 only: 264 keeps f=132)
-    assert _lane_factor(1944) == 216     # not 243
-    assert _lane_factor(3888) == 243 or _lane_factor(3888) % 8 == 0
-    assert _lane_factor(264) == 132      # small-n behavior unchanged
-
-    old = config.pallas_interpret
-    config.pallas_interpret = True
-    try:
-        # (3) n = 2*3^7 has no 8-aligned factor at all -> engine fallback
-        assert not pallas_supported(get_c2c_plan(4374, -1), jnp.float32)
-        assert not pallas_supported(get_c2c_plan(1458, -1), jnp.float32)
-        # aligned generics keep their kernel
-        assert pallas_supported(get_c2c_plan(1296, -1), jnp.float32)
-        assert pallas_supported(get_c2c_plan(264, -1), jnp.float32)
-    finally:
-        config.pallas_interpret = old

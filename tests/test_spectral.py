@@ -2,11 +2,11 @@
 
 Contract: exactly ``ndifft_r2c(mult * ndfft_r2c(x, h, axis), h, axis)``
 (reference inverse semantics: normalization before the inverse, DC/Nyquist
-imag zeroing — src/lib.rs:506-523) with the three steps fused into ONE
-Pallas kernel on the nat axis-mid route. These tests pin the fused route
-against the public composition and a numpy oracle, the fallback routes
-(odd n, minor axis, full-shape multiplier, custom normalization), and
-full AD in both modes and both arguments (the map is bilinear).
+imag zeroing — src/lib.rs:506-523) with the three steps traced into ONE
+program. These tests pin the fused step against the public composition and
+a numpy oracle across odd n, the minor axis, full-shape multipliers and
+custom normalization, and full AD in both modes and both arguments (the map
+is bilinear).
 """
 
 import numpy as np
@@ -15,8 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 from ndrustfft_tpu import (
-    Normalization, R2cFftHandler, config, ndfft_r2c, ndifft_r2c,
-    ndspectral_r2c,
+    Normalization, R2cFftHandler, ndfft_r2c, ndifft_r2c, ndspectral_r2c,
 )
 
 
@@ -37,28 +36,16 @@ def _oracle(x, H, n, axis, scale=None):
 
 
 @pytest.fixture(autouse=True)
-def _reset_cfg():
-    old = (config.use_pallas, config.pallas_interpret)
+def _fresh_caches():
+    from ndrustfft_tpu.api import _jitted, _spectral_jitted
+
+    _jitted.cache_clear()
+    _spectral_jitted.cache_clear()
     yield
-    config.use_pallas, config.pallas_interpret = old
-    from ndrustfft_tpu.api import _jitted, _spectral_jitted
-
-    _jitted.cache_clear()
-    _spectral_jitted.cache_clear()
-
-
-def _kernel_mode():
-    from ndrustfft_tpu.api import _jitted, _spectral_jitted
-
-    config.use_pallas = True
-    config.pallas_interpret = True
-    _jitted.cache_clear()
-    _spectral_jitted.cache_clear()
 
 
 @pytest.mark.parametrize("n", [512, 1024])
 def test_fused_kernel_matches_oracle(n):
-    _kernel_mode()
     rng = np.random.default_rng(n)
     x = rng.standard_normal((2, n, 16)).astype(np.float32)
     m = n // 2 + 1
@@ -71,7 +58,6 @@ def test_fused_kernel_matches_oracle(n):
 
 
 def test_fused_equals_public_composition():
-    _kernel_mode()
     n, m = 512, 257
     rng = np.random.default_rng(1)
     x = jnp.asarray(rng.standard_normal((2, n, 16)).astype(np.float32))
@@ -84,7 +70,6 @@ def test_fused_equals_public_composition():
 
 
 def test_real_multiplier_and_scalar_norm():
-    _kernel_mode()
     n, m = 512, 257
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, n, 16)).astype(np.float32)
@@ -146,7 +131,6 @@ def test_dc_passthrough_doc_contract():
 
 
 def test_ad_both_modes_both_args():
-    _kernel_mode()
     n, m = 512, 257
     rng = np.random.default_rng(5)
     x = jnp.asarray(rng.standard_normal((1, n, 16)).astype(np.float32))
@@ -158,13 +142,9 @@ def test_ad_both_modes_both_args():
         return jnp.sum(ndspectral_r2c(v, hm, h, axis=1) ** 2)
 
     def loss_engine(v, hm):
-        config.use_pallas = False
-        try:
-            y = ndifft_r2c(hm.reshape(1, m, 1) * ndfft_r2c(v, h, axis=1),
-                           h, axis=1)
-            return jnp.sum(y ** 2)
-        finally:
-            config.use_pallas = True
+        y = ndifft_r2c(hm.reshape(1, m, 1) * ndfft_r2c(v, h, axis=1),
+                       h, axis=1)
+        return jnp.sum(y ** 2)
 
     gx = jax.grad(loss)(x, H)
     gx_ref = jax.grad(loss_engine)(x, H)
@@ -180,7 +160,6 @@ def test_ad_both_modes_both_args():
 
 
 def test_under_user_jit():
-    _kernel_mode()
     n, m = 512, 257
     rng = np.random.default_rng(6)
     x = jnp.asarray(rng.standard_normal((1, n, 16)).astype(np.float32))
@@ -204,7 +183,6 @@ def test_dct_fused_kernel_matches_scipy():
 
     from ndrustfft_tpu import DctHandler, nddct2, nddct3, ndspectral_dct
 
-    _kernel_mode()
     n = 1024
     rng = np.random.default_rng(10)
     x = rng.standard_normal((2, n, 16)).astype(np.float32)
@@ -251,7 +229,6 @@ def test_dct_complex_multiplier_raises():
 def test_dct_ad_both_modes():
     from ndrustfft_tpu import DctHandler, nddct2, nddct3, ndspectral_dct
 
-    _kernel_mode()
     n = 512
     rng = np.random.default_rng(12)
     x = jnp.asarray(rng.standard_normal((1, n, 16)).astype(np.float32))
@@ -263,13 +240,9 @@ def test_dct_ad_both_modes():
         return jnp.sum(ndspectral_dct(v, hm, h2, h3, axis=1) ** 2)
 
     def loss_engine(v, hm):
-        config.use_pallas = False
-        try:
-            y = nddct3(hm.reshape(1, n, 1) * nddct2(v, h2, axis=1), h3,
-                       axis=1)
-            return jnp.sum(y ** 2)
-        finally:
-            config.use_pallas = True
+        y = nddct3(hm.reshape(1, n, 1) * nddct2(v, h2, axis=1), h3,
+                   axis=1)
+        return jnp.sum(y ** 2)
 
     for arg in (0, 1):
         g = jax.grad(loss, argnums=arg)(x, H)
@@ -288,7 +261,6 @@ def test_dct_ad_both_modes():
 def test_c2c_fused_kernel_matches_numpy():
     from ndrustfft_tpu import FftHandler, ndspectral_c2c
 
-    _kernel_mode()
     n = 1024
     rng = np.random.default_rng(20)
     x = (rng.standard_normal((2, n, 16))
@@ -305,7 +277,6 @@ def test_c2c_fused_kernel_matches_numpy():
 def test_c2c_fused_equals_public_composition():
     from ndrustfft_tpu import FftHandler, ndfft, ndifft, ndspectral_c2c
 
-    _kernel_mode()
     n = 512
     rng = np.random.default_rng(21)
     x = jnp.asarray((rng.standard_normal((2, n, 16))
@@ -337,7 +308,6 @@ def test_c2c_fallbacks():
 def test_c2c_ad_both_modes():
     from ndrustfft_tpu import FftHandler, ndfft, ndifft, ndspectral_c2c
 
-    _kernel_mode()
     n = 512
     rng = np.random.default_rng(23)
     x = jnp.asarray((rng.standard_normal((1, n, 16))
@@ -351,12 +321,8 @@ def test_c2c_ad_both_modes():
         return jnp.sum(jnp.abs(ndspectral_c2c(v, hm, h, axis=1)) ** 2)
 
     def loss_engine(v, hm):
-        config.use_pallas = False
-        try:
-            y = ndifft(hm.reshape(1, n, 1) * ndfft(v, h, axis=1), h, axis=1)
-            return jnp.sum(jnp.abs(y) ** 2)
-        finally:
-            config.use_pallas = True
+        y = ndifft(hm.reshape(1, n, 1) * ndfft(v, h, axis=1), h, axis=1)
+        return jnp.sum(jnp.abs(y) ** 2)
 
     for arg in (0, 1):
         g = jax.grad(loss, argnums=arg)(x, H)
@@ -376,7 +342,6 @@ def test_dst_fused_matches_scipy_and_composition():
 
     from ndrustfft_tpu import DstHandler, nddst2, nddst3, ndspectral_dst
 
-    _kernel_mode()
     n = 512
     rng = np.random.default_rng(30)
     x = rng.standard_normal((2, n, 16)).astype(np.float32)
@@ -424,7 +389,6 @@ def test_lanevar_multipliers_all_bases():
         ndspectral_dst,
     )
 
-    _kernel_mode()
     n, L = 512, 16
     m = n // 2 + 1
     rng = np.random.default_rng(40)

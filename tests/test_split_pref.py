@@ -1,17 +1,10 @@
-"""m=64 stage-split preference paths (interpreter mode on CPU).
+"""Middle-axis transforms at the sizes whose stage splits have the most
+factor choices (512 = 2^9, 1024 = 2^10, 2048 = 2^11).
 
-Round 5 lets the fused kernels' twostep split be forced to m=64 (butterfly
-factor up to f=16): the stage-1/stage-2 dense DFT-m dots are linear in m, so
-m=64 halves the kernels' MXU MACs vs the m=128 default wherever it divides.
-The knobs (`config.dct_split`, `config.rfft_split`, `config.mid_split`) are
-perf experiments — per-n defaults are blessed only from an on-chip A/B — but
-every forced path must stay numerically exact, which is what these tests pin
-(same oracles and tolerances as the default-split tests in test_pallas.py /
-test_dct.py).
-
-Reference scope: the split is internal to the L0 kernel layer the reference
-delegates to rustfft/rustdct (/root/reference/src/lib.rs:295-297); the public
-semantics are unchanged.
+The planner picks one factorization per size; whichever it picks, the
+public transforms along the middle axis of (B, n, L) must match the
+numpy/scipy float64 reference (rustdct convention = scipy / 2 under
+``Normalization.NONE``).
 """
 
 import numpy as np
@@ -19,90 +12,56 @@ import pytest
 import scipy.fft as sp
 
 import jax.numpy as jnp
-from ndrustfft_tpu import config
-from ndrustfft_tpu.ops.pallas.fft import _twostep_split
+from ndrustfft_tpu import (
+    DctHandler, FftHandler, Normalization, R2cFftHandler, nddct2, nddct3,
+    nddct4, ndfft, ndfft_r2c, ndifft_r2c,
+)
 
 
-@pytest.fixture(autouse=True)
-def _interpret_mode():
-    from ndrustfft_tpu.api import _jitted
-
-    old = (config.pallas_interpret, config.use_pallas, config.dct_split,
-           config.rfft_split, config.mid_split)
-    config.pallas_interpret = True
-    config.use_pallas = True
-    _jitted.cache_clear()
-    yield
-    (config.pallas_interpret, config.use_pallas, config.dct_split,
-     config.rfft_split, config.mid_split) = old
-    _jitted.cache_clear()
-
-
-def test_twostep_split_honors_m64_only_when_forced():
-    # never picked automatically
-    assert _twostep_split(512) == (128, 4)
-    assert _twostep_split(1024) == (128, 8)
-    # forced 64 honored where it divides with f <= 16
-    assert _twostep_split(512, 64) == (64, 8)
-    assert _twostep_split(1024, 64) == (64, 16)
-    # f would exceed 16 -> silent fallback to the default
-    assert _twostep_split(2048, 64) == (128, 16)
-    # m=64 unlocks splits the default never had (n=320: 128 doesn't divide)
-    assert _twostep_split(320) is None
-    assert _twostep_split(320, 64) == (64, 5)
+def _rel(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
 
 
 @pytest.mark.parametrize("n", [512, 1024])
 def test_dct23_split64_matches_scipy(n):
-    from ndrustfft_tpu.ops.pallas import dct as kd
-
     rng = np.random.default_rng(n)
     x = rng.standard_normal((2, n, 8)).astype(np.float32)
-    config.dct_split = 64
-    y2 = np.asarray(kd.dct2_pallas_mid(jnp.asarray(x)))
-    y3 = np.asarray(kd.dct3_pallas_mid(jnp.asarray(x)))
+    h = DctHandler(n).normalization(Normalization.NONE)
+    y2 = np.asarray(nddct2(jnp.asarray(x), h, axis=1))
+    y3 = np.asarray(nddct3(jnp.asarray(x), h, axis=1))
     r2 = sp.dct(x.astype(np.float64), type=2, axis=1) / 2
     r3 = sp.dct(x.astype(np.float64), type=3, axis=1) / 2
-    assert np.abs(y2 - r2).max() / np.abs(r2).max() < 1e-4
-    assert np.abs(y3 - r3).max() / np.abs(r3).max() < 1e-4
+    assert _rel(y2, r2) < 1e-4
+    assert _rel(y3, r3) < 1e-4
 
 
 def test_dct4_split64_matches_scipy():
-    from ndrustfft_tpu.ops.pallas import dct as kd
-
-    n = 2048  # split applies at n//2 = 1024 -> (64, 16)
+    n = 2048
     rng = np.random.default_rng(4)
     x = rng.standard_normal((1, n, 8)).astype(np.float32)
-    config.dct_split = 64
-    y = np.asarray(kd.dct4_pallas_mid(jnp.asarray(x)))
+    h = DctHandler(n).normalization(Normalization.NONE)
+    y = np.asarray(nddct4(jnp.asarray(x), h, axis=1))
     r = sp.dct(x.astype(np.float64), type=4, axis=1) / 2
-    assert np.abs(y - r).max() / np.abs(r).max() < 1e-4
+    assert _rel(y, r) < 1e-4
 
 
 @pytest.mark.parametrize("n", [512, 1024])
 def test_rfft_c2r_split64_roundtrip(n):
-    from ndrustfft_tpu.ops.pallas import rfft as kr
-    from ndrustfft_tpu.plan import get_r2c_plan
-
     rng = np.random.default_rng(n)
     x = rng.standard_normal((2, n, 8)).astype(np.float32)
-    config.rfft_split = 64
-    sr, si = kr.r2c_pallas_mid(jnp.asarray(x), get_r2c_plan(n))
-    got = np.asarray(sr) + 1j * np.asarray(si)
+    h = R2cFftHandler(n)
+    s = ndfft_r2c(jnp.asarray(x), h, axis=1)
     ref = np.fft.rfft(x.astype(np.float64), axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
-    back = np.asarray(kr.c2r_pallas_mid(sr, si, n, scale=1.0 / n))
+    assert _rel(np.asarray(s), ref) < 1e-4
+    back = np.asarray(ndifft_r2c(s, h, axis=1))
     assert np.abs(back - x).max() < 1e-4
 
 
 def test_c2c_mid_split64_matches_numpy():
-    from ndrustfft_tpu import FftHandler, ndfft
-
     n = 1024
     rng = np.random.default_rng(7)
     x = (rng.standard_normal((2, n, 8))
          + 1j * rng.standard_normal((2, n, 8))).astype(np.complex64)
-    config.mid_split = 64
     got = np.asarray(ndfft(jnp.asarray(x), FftHandler(n), axis=1))
-    ref = np.fft.fft(x, axis=1)
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    ref = np.fft.fft(x.astype(np.complex128), axis=1)
+    assert _rel(got, ref) < 1e-4

@@ -6,9 +6,12 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from ndrustfft_tpu.utils.cache import enable_persistent_cache
+import pytest
+
+from ndrustfft_tpu.utils import cache
 from ndrustfft_tpu.utils.profiling import (
-    Roofline, chip_spec, fft_bytes, fft_flops, measure, roofline_c2c,
+    DEVICE_SPECS, Roofline, chip_spec, fft_bytes, fft_flops,
+    predict_pencil_weak_scaling, roofline_c2c,
 )
 
 
@@ -18,15 +21,52 @@ def test_fft_flop_convention():
 
 
 def test_roofline_math():
-    r = Roofline(seconds=20.5e-6, flops=5 * 1024 * 10 * 1024,
-                 bytes=2 * 1024 * 1024 * 8, hbm_gbps=819.0, peak_tflops=98.5)
+    # a 1024^2 c64 read+write (16.8 MB) at the H100's 3350 GB/s takes
+    # 5.0 us: a 5.2 us transform sits at 96% of that bound
+    h100 = DEVICE_SPECS["NVIDIA H100 80GB HBM3"]
+    r = Roofline(seconds=5.2e-6, flops=5 * 1024 * 10 * 1024,
+                 bytes=2 * 1024 * 1024 * 8, hbm_gbps=h100.hbm_gbps,
+                 peak_tflops=h100.f32_tflops)
     assert 90 <= r.pct_of_hbm_roofline <= 105
     assert "GFLOP/s" in str(r)
 
 
 def test_chip_spec_returns_pair():
-    hbm, peak = chip_spec()
-    assert hbm > 0 and peak > 0
+    # the CPU test backend has its (placeholder) entry
+    spec = chip_spec()
+    assert spec is DEVICE_SPECS["cpu"]
+    assert spec.hbm_gbps > 0 and spec.f32_tflops > 0
+
+
+class _FakeDevice:
+    def __init__(self, kind):
+        self.device_kind = kind
+
+
+def test_device_table_h100():
+    spec = chip_spec(_FakeDevice("NVIDIA H100 80GB HBM3"))
+    assert (spec.hbm_gbps, spec.f32_tflops, spec.tf32_tflops,
+            spec.link_gbps) == (3350.0, 67.0, 495.0, 450.0)
+    assert "datasheet" in spec.source
+
+
+def test_device_table_unknown_device_raises():
+    with pytest.raises(KeyError, match="no peak table entry"):
+        chip_spec(_FakeDevice("Some Accelerator 9000"))
+
+
+def test_pencil_model_reads_the_device_table():
+    # with no rates given, the model takes the device's HBM and link rates;
+    # halving the wire bytes halves the communication term
+    local = (32, 32, 256)
+    est = predict_pencil_weak_scaling(local, (2, 2))
+    spec = DEVICE_SPECS["cpu"]
+    v_bytes = 32 * 32 * 256 * 8
+    # two mesh axes of k=2: forward + inverse each move half the volume
+    assert est.t_comm == pytest.approx(
+        2 * (2.0 * v_bytes * 0.5) / (spec.link_gbps * 1e9))
+    half = predict_pencil_weak_scaling(local, (2, 2), wire_itemsize=2)
+    assert half.t_comm == pytest.approx(est.t_comm / 2)
 
 
 def test_measure_and_roofline_c2c():
@@ -40,10 +80,24 @@ def test_measure_and_roofline_c2c():
     assert r.seconds > 0 and r.gflops > 0
 
 
-def test_persistent_cache(tmp_path):
-    p = enable_persistent_cache(str(tmp_path / "xla_cache"))
-    assert os.path.isdir(p)
-    assert jax.config.jax_compilation_cache_dir == p
+def test_persistent_cache(tmp_path, monkeypatch):
+    # JAX_COMPILATION_CACHE_DIR set: that directory, and no other
+    want = str(tmp_path / "xla_cache")
+    monkeypatch.setenv(cache.ENV_VAR, want)
+    before = jax.config.jax_compilation_cache_dir
+    assert cache.cache_dir() == want
+    p = cache.enable_persistent_cache()
+    assert p == want and os.path.isdir(p)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_cache_dir_without_env_is_fixed_in_checkout(monkeypatch):
+    # unset: the fixed <repo>/.jax_cache, whatever the home directory
+    monkeypatch.delenv(cache.ENV_VAR, raising=False)
+    monkeypatch.setenv("HOME", "/nonexistent-home")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.cache_dir() == os.path.join(repo, ".jax_cache")
+    assert cache.cache_dir() == cache.DEFAULT_DIR
 
 
 def test_handler_warmup_precompiles():
